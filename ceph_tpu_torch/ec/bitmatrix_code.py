@@ -1,0 +1,361 @@
+"""GF(2) bit-matrix erasure codes of the PyTorch port — the liberation
+family (jerasure's liberation, blaum_roth and liber8tion techniques).
+
+The counterpart of the JAX package's ``ceph_tpu/ec/bitmatrix_code.py``.
+The constructions are copied as they are: blaum_roth and liberation are
+the published ones, liber8tion is the JAX package's own MDS companion-
+matrix stand-in with the published parameter envelope (see that module's
+header for why).  All share one execution shape: a (w*m, w*k) GF(2)
+matrix applied as XORs of packet rows.
+
+Packetization is GRANULE-LOCAL: the byte stream is processed in
+independent granules of w*SIMD_ALIGN bytes, each split into w packets, so
+any granule-aligned sub-range encodes identically to the same bytes
+inside a larger call.
+
+Backends: ``numpy`` is the host path (the oracle); ``torch`` runs the
+packet rows through ops/ec_kernels.ScheduledXor on the profile's
+``device`` (default ``cuda``), which on the card launches the CUDA kernel
+gf_sched_xor.  The chunks go to the device in one copy and are permuted
+there into (n*w, G*S) plane rows; the result is permuted back and copied
+to the host once.  Applies below DEVICE_APPLY_MIN_BYTES stay on the host
+and are counted in ``host_applies``.
+
+A deliberate difference from the JAX package: the JAX codec catches any
+exception of the device apply, latches the device path off
+(``_xor_device_broken``) and carries on on the host.  This port has no
+such fall-through: on the torch backend an apply at or above the size
+rule runs on the device or raises.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..ops.ec_kernels import ScheduledXor
+from ..utils.perf import kernel_profiler
+from .interface import (ChunkMap, ErasureCode, ErasureCodeError, Flags,
+                        SIMD_ALIGN)
+from .matrix_code import _pick_backend, resolve_device
+
+# primitive polynomials over GF(2) for the word sizes the techniques use
+_POLYS = {4: 0x13, 5: 0x25, 6: 0x43, 7: 0x89, 8: 0x11D}
+
+
+def gfw_mul(a: int, b: int, w: int) -> int:
+    """Carry-less multiply mod the primitive polynomial of GF(2^w)."""
+    poly = _POLYS[w]
+    r = 0
+    while b:
+        if b & 1:
+            r ^= a
+        b >>= 1
+        a <<= 1
+        if a >> w:
+            a ^= poly
+    return r
+
+
+def element_bitmatrix(e: int, w: int) -> np.ndarray:
+    """The w x w GF(2) matrix of multiply-by-e in GF(2^w): column j is
+    the bit vector of e * x^j (the companion-matrix representation that
+    turns field math into XOR schedules)."""
+    M = np.zeros((w, w), dtype=np.uint8)
+    for j in range(w):
+        v = gfw_mul(e, 1 << j, w)
+        for i in range(w):
+            M[i, j] = (v >> i) & 1
+    return M
+
+
+def blaum_roth_bitmatrix(k: int, w: int) -> np.ndarray:
+    """The PUBLISHED Blaum-Roth RAID-6 construction (Blaum & Roth,
+    lowest-density MDS codes over the ring R_p = GF(2)[x]/M_p(x) with
+    M_p = 1 + x + ... + x^(p-1), p = w+1 prime — the same matrix
+    jerasure's blaum_roth technique builds): symbols are polynomials of
+    degree < w; P = sum(d_i), Q = sum(x^i * d_i).  Multiply-by-x in the
+    quotient basis {1..x^(w-1)} is the companion matrix whose last
+    column is ALL-ONES (x^w = x^(p-1) == sum of all lower powers mod
+    M_p); block i of Q is its i-th power.  MDS for k <= w because x has
+    order p and x^i + x^j is a unit in R_p for i != j (mod p)."""
+    p = w + 1
+    if any(p % d == 0 for d in range(2, p)) or p < 3:
+        raise ErasureCodeError(f"blaum_roth needs w+1 prime (w={w})")
+    if k > w:
+        raise ErasureCodeError(f"blaum_roth: k={k} > w={w}")
+    # companion matrix of multiply-by-x in R_p
+    C = np.zeros((w, w), dtype=np.uint8)
+    for j in range(w - 1):
+        C[j + 1, j] = 1
+    C[:, w - 1] = 1  # x^w reduces to 1 + x + ... + x^(w-1)
+    B = np.zeros((2 * w, k * w), dtype=np.uint8)
+    ident = np.eye(w, dtype=np.uint8)
+    Ci = ident
+    for i in range(k):
+        B[:w, i * w:(i + 1) * w] = ident
+        B[w:, i * w:(i + 1) * w] = Ci
+        Ci = (C @ Ci) % 2
+    _assert_mds(B, k, w)
+    return B
+
+
+def liberation_bitmatrix(k: int, w: int) -> np.ndarray:
+    """The PUBLISHED Liberation construction (Plank, FAST'08 "The
+    RAID-6 Liberation Codes"; jerasure's liberation technique): w
+    prime, k <= w, m = 2.  P blocks are identities; Q block X_0 = I
+    and for i >= 1, X_i is the cyclic shift sigma^i (one at
+    (r, (r+i) mod w)) plus ONE extra bit at row y = i(w-1)/2 mod w,
+    column (y + i - 1) mod w.  The Q drive then carries exactly
+    kw + k - 1 ones — the minimum-density bound the paper proves —
+    and the code is MDS; both properties are asserted here at
+    construction so a placement regression can never ship bytes."""
+    if w < 2 or any(w % d == 0 for d in range(2, w)):
+        raise ErasureCodeError(f"liberation needs prime w (got {w})")
+    if k > w:
+        raise ErasureCodeError(f"liberation: k={k} > w={w}")
+    B = np.zeros((2 * w, k * w), dtype=np.uint8)
+    ident = np.eye(w, dtype=np.uint8)
+    for i in range(k):
+        B[:w, i * w:(i + 1) * w] = ident
+        X = np.zeros((w, w), dtype=np.uint8)
+        for r in range(w):
+            X[r, (r + i) % w] = 1
+        if i > 0:
+            y = (i * (w - 1) // 2) % w
+            X[y, (y + i - 1) % w] ^= 1
+        B[w:, i * w:(i + 1) * w] = X
+    if int(B[w:].sum()) != k * w + k - 1:
+        raise ErasureCodeError("liberation density regression")
+    _assert_mds(B, k, w)
+    return B
+
+
+def _assert_mds(B: np.ndarray, k: int, w: int) -> None:
+    """Every 2-erasure pattern of the systematic (k+2, k) code must
+    decode (construction-time guard for the bit-matrix families)."""
+    import itertools as _it
+    full = np.concatenate([np.eye(k * w, dtype=np.uint8), B])
+    for gone in _it.combinations(range(k + 2), 2):
+        keep = [i for i in range(k + 2) if i not in gone][:k]
+        rows = np.concatenate([full[i * w:(i + 1) * w] for i in keep])
+        _gf2_invert(rows)  # raises if singular
+
+
+def raid6_bitmatrix(k: int, w: int) -> np.ndarray:
+    """(2w, kw) bit-matrix of the RAID-6 pair over GF(2^w):
+    P = XOR of all data, Q = sum alpha^i * d_i  (alpha = x, primitive).
+    MDS for k <= 2^w - 1: every 2x2 minor of [[1..1],[a^i]] inverts."""
+    if k > (1 << w) - 1:
+        raise ErasureCodeError(f"k={k} > {(1 << w) - 1} for w={w}")
+    B = np.zeros((2 * w, k * w), dtype=np.uint8)
+    ident = np.eye(w, dtype=np.uint8)
+    alpha_i = 1
+    for i in range(k):
+        B[:w, i * w:(i + 1) * w] = ident
+        B[w:, i * w:(i + 1) * w] = element_bitmatrix(alpha_i, w)
+        alpha_i = gfw_mul(alpha_i, 2, w)
+    _assert_mds(B, k, w)
+    return B
+
+
+def _gf2_invert(M: np.ndarray) -> np.ndarray:
+    """Invert a square GF(2) matrix (Gauss-Jordan over bits)."""
+    n = M.shape[0]
+    A = np.concatenate([M.astype(np.uint8) % 2,
+                        np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = next((r for r in range(col, n) if A[r, col]), None)
+        if piv is None:
+            raise ErasureCodeError("bitmatrix not invertible")
+        if piv != col:
+            A[[col, piv]] = A[[piv, col]]
+        rows = [r for r in range(n) if r != col and A[r, col]]
+        A[rows] ^= A[col]
+    return A[:, n:]
+
+
+class BitMatrixErasureCode(ErasureCode):
+    """Systematic GF(2) bit-matrix code executed as XORs of packet rows.
+
+    Subclasses set self.w and self.bitmatrix ((w*m, w*k)) in
+    _init_from_profile.  Chunks are processed in granules of
+    w*SIMD_ALIGN bytes; every chunk length must be granule-aligned
+    (get_chunk_size/minimum granularity enforce it)."""
+
+    w: int
+    bitmatrix: np.ndarray
+
+    #: below this many source bytes an apply stays on the host numpy path
+    #: even on the torch backend: a sub-ms vectorized XOR beats a device
+    #: round trip (the JAX package's JAX_APPLY_MIN_BYTES; a class
+    #: attribute, so tests can set it to 0)
+    DEVICE_APPLY_MIN_BYTES = 1 << 16
+
+    def _init_bitmatrix(self) -> None:
+        self._backend = _pick_backend(self.profile.get("backend", "auto"))
+        self.device = (resolve_device(self.profile.get("device", "cuda"))
+                       if self._backend == "torch" else None)
+        self._granule = self.w * SIMD_ALIGN
+        self._decode_cache: dict[tuple, np.ndarray] = {}
+        # matrix-bytes -> ScheduledXor, LRU-bounded: the encode drive plus
+        # the decode combination matrices of hot erasure signatures
+        self._xor_ops: dict[bytes, ScheduledXor] = {}
+        self._xor_lock = threading.Lock()
+        self._xor_shapes_seen: set[tuple] = set()
+        #: torch-backend applies that stayed on the host because they
+        #: were under DEVICE_APPLY_MIN_BYTES
+        self.host_applies = 0
+
+    def get_flags(self) -> Flags:
+        # no PARITY_DELTA: a parity byte depends on data bytes at OTHER
+        # offsets (cross-packet mixing), so the view-positional delta
+        # contract of the matrix codes does not hold — overwrites take
+        # the rmw path
+        return Flags.ZERO_PADDING
+
+    def get_minimum_granularity(self) -> int:
+        return self._granule
+
+    def get_chunk_size(self, stripe_width: int) -> int:
+        per = -(-stripe_width // self.k)
+        return -(-per // self._granule) * self._granule
+
+    # -- packet algebra ----------------------------------------------------
+    def _granules(self, L: int) -> int:
+        if L % self._granule:
+            raise ErasureCodeError(
+                f"chunk length {L} not a multiple of the {self._granule}"
+                f"-byte granule (w={self.w})")
+        return L // self._granule
+
+    def _rows(self, chunks: np.ndarray) -> np.ndarray:
+        """(n, L) chunks -> (G, n*w, S) packet rows per granule."""
+        n, L = chunks.shape
+        g = self._granules(L)
+        return chunks.reshape(n, g, self.w, SIMD_ALIGN) \
+            .transpose(1, 0, 2, 3).reshape(g, n * self.w, SIMD_ALIGN)
+
+    def _unrows(self, rows: np.ndarray, n: int) -> np.ndarray:
+        g = rows.shape[0]
+        return rows.reshape(g, n, self.w, SIMD_ALIGN) \
+            .transpose(1, 0, 2, 3).reshape(n, g * self._granule)
+
+    def _xor_kernel(self, B: np.ndarray) -> ScheduledXor:
+        """The scheduled-XOR op for bit-matrix ``B`` on the codec's
+        device (LRU per matrix)."""
+        # NOT bytes(B.shape): bit-matrix dims reach 256+ (liber8tion
+        # k=32 is (16, 256)) and bytes() raises there
+        key = B.tobytes() + repr(B.shape).encode()
+        with self._xor_lock:
+            op = self._xor_ops.pop(key, None)
+            if op is not None:
+                self._xor_ops[key] = op  # LRU touch
+                return op
+        op = ScheduledXor(B, device=self.device)
+        with self._xor_lock:
+            hit = self._xor_ops.pop(key, None)
+            if hit is not None:
+                op = hit
+            elif len(self._xor_ops) > 64:
+                self._xor_ops.pop(next(iter(self._xor_ops)))
+            self._xor_ops[key] = op
+        return op
+
+    def _apply_bits_device(self, B: np.ndarray,
+                           chunks: np.ndarray) -> np.ndarray:
+        """torch-backend apply: (n, L) chunks -> (R / w, L).  One
+        host->device copy; on the device the granule-local packet rows
+        are permuted into (n*w, G*S) plane rows (XOR is positionwise, so
+        the re-layout is exact), ONE scheduled-XOR launch produces every
+        output packet row, and the inverse permute gives the chunks back
+        for one device->host copy.  The copy in, the permutes and the
+        launch are booked in the kernel profiler under ``bitxor/RxC/L...``
+        (the first launch of a shape as "compile", then "device"), the
+        copy back as "sync"."""
+        n, L = chunks.shape
+        g, w, s = self._granules(L), self.w, SIMD_ALIGN
+        n_out = B.shape[0] // w
+        op = self._xor_kernel(B)
+        sig = f"bitxor/{B.shape[0]}x{B.shape[1]}/L{g * s}"
+        t0 = time.perf_counter()
+        x = torch.from_numpy(chunks).to(self.device)
+        planes = x.view(n, g, w, s).permute(0, 2, 1, 3).reshape(n * w, g * s)
+        out = op(planes).reshape(n_out, w, g, s).permute(0, 2, 1, 3) \
+            .reshape(n_out, L)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        dt = time.perf_counter() - t0
+        shape_key = (sig, chunks.shape)
+        with self._xor_lock:
+            first = shape_key not in self._xor_shapes_seen
+            if first:
+                self._xor_shapes_seen.add(shape_key)
+        kernel_profiler().note("compile" if first else "device", sig, dt)
+        t0 = time.perf_counter()
+        res = out.cpu().numpy()
+        kernel_profiler().note("sync", sig, time.perf_counter() - t0)
+        return res
+
+    def _apply_bits(self, B: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """Host path: out[:, r] = XOR of rows[:, c] where B[r, c] — per
+        granule, on (G, n*w, S) packet rows."""
+        g, _nr, s = rows.shape
+        out = np.zeros((g, B.shape[0], s), dtype=np.uint8)
+        for r in range(B.shape[0]):
+            idx = np.nonzero(B[r])[0]
+            if idx.size:
+                out[:, r] = np.bitwise_xor.reduce(rows[:, idx], axis=1)
+        return out
+
+    def _apply(self, B: np.ndarray, chunks: np.ndarray) -> np.ndarray:
+        """(n, L) chunks -> (B.shape[0] / w, L): output packet row r is
+        the XOR of the input packet rows c where B[r, c], granule by
+        granule.  On the torch backend it runs on the device, unless it
+        is smaller than DEVICE_APPLY_MIN_BYTES (counted)."""
+        if self._backend == "torch" and chunks.shape[1] > 0:
+            if chunks.nbytes >= self.DEVICE_APPLY_MIN_BYTES:
+                return self._apply_bits_device(B, chunks)
+            with self._xor_lock:
+                self.host_applies += 1
+        return self._unrows(self._apply_bits(B, self._rows(chunks)),
+                            B.shape[0] // self.w)
+
+    # -- encode/decode -----------------------------------------------------
+    def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:
+        return self._apply(self.bitmatrix,
+                           np.ascontiguousarray(data_chunks, dtype=np.uint8))
+
+    def _decode_combo(self, want: tuple, avail: tuple) -> np.ndarray:
+        """Combination matrix mapping avail shards' packet rows to the
+        wanted shards' packet rows (cached per erasure signature)."""
+        key = (want, avail)
+        C = self._decode_cache.get(key)
+        if C is not None:
+            return C
+        w, k = self.w, self.k
+        full = np.concatenate([np.eye(k * w, dtype=np.uint8),
+                               self.bitmatrix], axis=0)
+        S = np.concatenate([full[s * w:(s + 1) * w] for s in avail])
+        R = _gf2_invert(S)
+        Wm = np.concatenate([full[s * w:(s + 1) * w] for s in want])
+        C = (Wm.astype(np.uint8) @ R.astype(np.uint8)) % 2
+        if len(self._decode_cache) > 64:
+            self._decode_cache.pop(next(iter(self._decode_cache)))
+        self._decode_cache[key] = C
+        return C
+
+    def decode_chunks(self, want, chunks: ChunkMap) -> ChunkMap:
+        avail = tuple(sorted(chunks))[: self.k]
+        if len(avail) < self.k:
+            raise ErasureCodeError(
+                f"need {self.k} shards, have {sorted(chunks)}")
+        wanted = tuple(sorted(want))
+        C = self._decode_combo(wanted, avail)
+        data = np.stack([np.asarray(chunks[s], dtype=np.uint8)
+                         for s in avail])
+        out = self._apply(C, data)
+        return {s: out[i] for i, s in enumerate(wanted)}

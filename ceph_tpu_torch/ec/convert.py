@@ -1,7 +1,8 @@
 """Bring the JAX package's erasure-code state into the port.
 
 The JAX package's state is numpy already: a codec's coding matrix
-(``.matrix``) and an XOR schedule's tuples.  These functions rebuild the
+(``.matrix``), a bit-matrix codec's ``.bitmatrix`` and an XOR schedule's
+tuples.  These functions rebuild the
 port's objects around that state, so the tests hand the JAX objects'
 arrays over instead of recomputing them on the port's side.
 """
@@ -28,6 +29,27 @@ def codec_from_reference(plugin: str, profile, matrix: np.ndarray, *,
         raise ErasureCodeError(
             f"matrix shape {M.shape} != the codec's {codec.matrix.shape}")
     codec.matrix = M
+    return codec
+
+
+def bitcode_from_reference(profile, bitmatrix: np.ndarray, *, device):
+    """The port's ``jerasure`` bit-matrix codec (liberation, blaum_roth or
+    liber8tion) for ``profile`` on ``device``, computing with the
+    reference codec's ``bitmatrix`` (w*m, w*k) over GF(2)."""
+    from .bitmatrix_code import BitMatrixErasureCode
+
+    prof = {k: v for k, v in dict(profile).items() if k != "backend"}
+    prof["device"] = str(device)
+    codec = factory("jerasure", prof)
+    if not isinstance(codec, BitMatrixErasureCode):
+        raise ErasureCodeError(
+            f"technique {prof.get('technique')!r} is not a bit-matrix code")
+    B = np.ascontiguousarray(bitmatrix, dtype=np.uint8)
+    if B.shape != codec.bitmatrix.shape:
+        raise ErasureCodeError(
+            f"bitmatrix shape {B.shape} != the codec's "
+            f"{codec.bitmatrix.shape}")
+    codec.bitmatrix = B
     return codec
 
 

@@ -31,6 +31,12 @@ Kernel realizations (the names of the ``kernel=`` profile key, KERNELS):
 - ``mxu``    — the bit-matrix GEMM of the JAX package; not ported yet, so
   ``kernel_supports`` answers False for it.
 
+ScheduledXor is the third op: B @ rows over GF(2) for the bit-matrix
+codes, whose packet rows are planes already.  It launches the CUDA kernel
+``gf_sched_xor`` (wrapper gf_sched_xor_lanes) over B lowered by
+sched_xor_plan; its plain version runs B's CSE'd XOR schedule, as the
+JAX body does.
+
 Plain versions work on ``int32`` views of the lanes: CPU torch has no
 shifts on ``uint32``.  An arithmetic right shift by s <= 7 followed by the
 0x01010101 mask gives the same bits as the logical one, and int32
@@ -38,8 +44,8 @@ multiplies and left shifts wrap exactly like uint32 ones.
 
 A wrapper takes its plain version only because the tensor it was given
 lies on the CPU; on a CUDA tensor it launches its kernel or raises.
-Launches are counted in LAUNCHES (``gf_bitterm``, ``gf_bitxor``, and
-``plain`` for every run of a plain version).
+Launches are counted in LAUNCHES (``gf_bitterm``, ``gf_bitxor``,
+``gf_sched_xor``, and ``plain`` for every run of a plain version).
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ KERNELS = ("xla", "pallas", "mxu", "bitxor")
 
 #: launch counters: each wrapper adds one where it launches its kernel,
 #: and every run of a plain version adds one to ``plain``
-LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "plain": 0}
+LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "gf_sched_xor": 0,
+            "plain": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -524,7 +531,204 @@ def region_fn(M: np.ndarray, kernel: str = "auto"):
     return fn
 
 
-class RegionMatmul:
+# ---------------------------------------------------------------------------
+# scheduled XOR of packet rows: the GF(2) bit-matrix codes (K3)
+# ---------------------------------------------------------------------------
+
+def _sched_plane_rows(x32, sched: XorSchedule):
+    """Plain version of K3: (n_in, n4) int32 plane rows -> (n_out, n4):
+    the schedule applied to rows that ARE the planes already (the
+    bit-matrix code family's packet rows), so there is no bit extraction
+    and no packing.  An output with no terms is a zero row."""
+    if x32.shape[0] != sched.n_in:
+        raise ValueError(f"schedule wants {sched.n_in} rows, got "
+                         f"{x32.shape[0]}")
+    _count("plain")
+    nodes: list = [None] * (sched.n_in + len(sched.ops))
+    for p in sched.used_inputs:
+        nodes[p] = x32[p]
+    _eval_schedule_nodes(sched, nodes)
+    rows = []
+    for terms in sched.outputs:
+        acc = _combine_terms(nodes, terms)
+        rows.append(acc if acc is not None else torch.zeros_like(x32[0]))
+    return torch.stack(rows)
+
+
+#: output rows one gf_sched_xor thread keeps in registers at a time;
+#: must match kSchedRows in csrc/gf_region.cu
+SCHED_ROW_BLOCK = 16
+
+
+@dataclass(frozen=True)
+class SchedXorPlan:
+    """A GF(2) matrix B (rows, cols) lowered for the gf_sched_xor kernel.
+
+    Output rows go in blocks of SCHED_ROW_BLOCK.  Block b's entries are
+    ``entries[ptr[b]:ptr[b + 1]]``, one (input row, mask) pair for every
+    input row that feeds a row of the block, in input-row order: bit i of
+    the mask is B[b * SCHED_ROW_BLOCK + i, input row].  ``ptr`` is
+    (n_blocks + 1,) int32 and ``entries`` (n, 2) int32."""
+
+    ptr: np.ndarray
+    entries: np.ndarray
+    rows: int
+    cols: int
+
+
+def sched_xor_plan(B: np.ndarray) -> SchedXorPlan:
+    """Lower GF(2) matrix ``B`` into a SchedXorPlan."""
+    B = np.ascontiguousarray(B, dtype=np.uint8) & 1
+    rows, cols = B.shape
+    ptr = [0]
+    entries: list[tuple[int, int]] = []
+    for r0 in range(0, rows, SCHED_ROW_BLOCK):
+        blk = B[r0:r0 + SCHED_ROW_BLOCK].astype(np.int64)
+        masks = (blk << np.arange(blk.shape[0])[:, None]).sum(axis=0)
+        entries += [(int(c), int(masks[c])) for c in np.nonzero(masks)[0]]
+        ptr.append(len(entries))
+    return SchedXorPlan(ptr=np.array(ptr, dtype=np.int32),
+                        entries=np.array(entries, dtype=np.int32)
+                        .reshape(-1, 2), rows=rows, cols=cols)
+
+
+def gf_sched_xor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None
+                       ) -> torch.Tensor:
+    """K3 wrapper: (C, n4) 32-bit plane rows -> (R, n4) int32 lanes.
+
+    On a CPU tensor it runs the plain version of ``sched``.  On a CUDA
+    tensor it launches ``gf_sched_xor`` with ``plan`` = (ptr tensor,
+    entries tensor, SchedXorPlan), the tensors on the same device, and
+    needs n4 % 4 == 0 and 16-byte alignment."""
+    if x32.device.type == "cpu":
+        return _sched_plane_rows(x32.view(torch.int32), sched)
+    if x32.device.type != "cuda":
+        raise ValueError(f"gf_sched_xor: unsupported device {x32.device}")
+    if plan is None:
+        raise ValueError("gf_sched_xor: a CUDA tensor needs the device plan")
+    ptr, entries, p = plan
+    _check_lanes(x32, p.cols, "gf_sched_xor")
+    n4 = x32.shape[1]
+    if (not x32.is_contiguous() or n4 % 4 or x32.data_ptr() % 16
+            or ptr.device != x32.device or entries.device != x32.device):
+        raise ValueError("gf_sched_xor: want contiguous, 16-byte aligned "
+                         "lanes with n4 % 4 == 0 and the plan on the "
+                         "same device")
+    from . import cuda_lib
+    y32 = torch.empty((p.rows, n4), dtype=torch.int32, device=x32.device)
+    with torch.cuda.device(x32.device):
+        stream = torch.cuda.current_stream(x32.device).cuda_stream
+        err = cuda_lib.lib().gf_sched_xor(
+            x32.data_ptr(), y32.data_ptr(), ptr.data_ptr(),
+            entries.data_ptr(), p.rows, int(entries.shape[0]), n4, stream)
+    cuda_lib.check(err, "gf_sched_xor launch")
+    _count("gf_sched_xor")
+    return y32
+
+
+def gf_sched_xor_graph(B: np.ndarray):
+    """fn(rows (C, L) uint8 tensor) -> (R, L) uint8 computing B @ rows
+    over GF(2) by B's XOR schedule (L % 4 == 0); the plain version of
+    K3, on any device."""
+    B = np.ascontiguousarray(B, dtype=np.uint8) & 1
+    sched = _cached_schedule(B.tobytes(), B.shape)
+
+    def fn(rows_u8):
+        if rows_u8.shape[0] != B.shape[1]:
+            raise ValueError(f"expected {B.shape[1]} rows, got "
+                             f"{rows_u8.shape[0]}")
+        y32 = _sched_plane_rows(_lanes_view(rows_u8), sched)
+        return _bytes_view(y32).reshape(B.shape[0], -1)
+
+    return fn
+
+
+class _LaneOp:
+    """What RegionMatmul and ScheduledXor share: one device, the JAX
+    kernels' padding quantum, and the byte path (c, L) uint8 -> (r, L)
+    uint8 around the op's lane computation ``_lanes_op``, (c, n4) ->
+    (r, n4) 32-bit lanes.  Subclasses set ``r`` and ``c``."""
+
+    # lane block of the JAX kernels: BLOCK 32-bit lanes per row (32 KiB);
+    # it sets the padding quantum, which the port keeps exactly
+    BLOCK = 8192
+
+    r: int
+    c: int
+
+    def _set_device(self, device) -> None:
+        """``device="cuda"`` with no card raises; ``cuda`` is pinned to
+        the current card's index."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"{type(self).__name__}: device cuda "
+                                   "requested but "
+                                   "torch.cuda.is_available() is False")
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+
+    def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _quantum(self, L: int) -> int:
+        # 512 bytes up to one block, then whole blocks (the JAX kernel's
+        # tiling; kept so both packages pad identically)
+        return 512 if L <= 4 * self.BLOCK else 4 * self.BLOCK
+
+    def _on_device(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on this op's device.  Host input is copied over; a
+        tensor on any other device raises, so work never leaves the card
+        unseen (a card tensor given to a CPU op does not quietly run the
+        plain version)."""
+        if x.device == self.device:
+            return x
+        if x.device.type != "cpu":
+            raise ValueError(f"a {x.device} tensor given to a "
+                             f"{type(self).__name__} on {self.device}")
+        return x.to(self.device)
+
+    def encode_lanes(self, x32: torch.Tensor) -> torch.Tensor:
+        """Raw lane-domain entry: x32 (c, n4) int32/uint32 tensor ->
+        (r, n4) int32 tensor on this op's device.  n4 must already be a
+        multiple of 128 (whole tiles) and, beyond one block, of BLOCK."""
+        n4 = x32.shape[-1]
+        if n4 % 128 or (n4 > self.BLOCK and n4 % self.BLOCK):
+            raise ValueError(
+                f"encode_lanes wants n4 % 128 == 0 and, beyond one block, "
+                f"n4 % {self.BLOCK} == 0; got {n4}")
+        return self._lanes_op(self._on_device(x32))
+
+    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
+        """data (c, L) uint8 (numpy, or a tensor on the host or on this
+        op's device) -> (r, L) uint8 tensor on this op's device.
+        ``donate`` is accepted for the JAX package's signature and
+        ignored: the port does not alias inputs yet."""
+        if isinstance(data, np.ndarray):
+            data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
+        if data.dtype != torch.uint8:
+            raise TypeError(f"expected uint8 data, got {data.dtype}")
+        if data.ndim != 2 or data.shape[0] != self.c:
+            raise ValueError(
+                f"expected ({self.c}, L) data, got {tuple(data.shape)}")
+        L = data.shape[1]
+        if L == 0:
+            return torch.zeros((self.r, 0), dtype=torch.uint8,
+                               device=self.device)
+        pad = (-L) % self._quantum(L)
+        x = self._on_device(data)
+        if pad or not x.is_contiguous() or x.data_ptr() % 16:
+            buf = torch.zeros((self.c, L + pad), dtype=torch.uint8,
+                              device=self.device)
+            buf[:, :L] = x
+            x = buf
+        y32 = self.encode_lanes(x.view(torch.int32))
+        out = y32.view(torch.uint8)
+        return out[:, :L] if pad else out
+
+
+class RegionMatmul(_LaneOp):
     """out(r, L) = M(r, c) @ data(c, L) over GF(2^8) on one device.
 
     ``data`` is uint8; stripes batch by widening L (columns are
@@ -534,10 +738,6 @@ class RegionMatmul:
     matrix's device-resident coefficient table (K1) or lowered program
     (K2), built at first launch behind ``_cache_lock``.
     """
-
-    # lane block of the JAX kernel: BLOCK 32-bit lanes per row (32 KiB);
-    # it sets the padding quantum, which the port keeps exactly
-    BLOCK = 8192
 
     def __init__(self, M: np.ndarray, *, kernel: str = "auto",
                  device="cuda"):
@@ -550,14 +750,7 @@ class RegionMatmul:
         self.r, self.c = self.M.shape
         if kernel not in ("auto",) + KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("RegionMatmul: device cuda requested but "
-                                   "torch.cuda.is_available() is False")
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
+        self._set_device(device)
         if kernel == "auto":
             kernel = "pallas" if self.device.type == "cuda" else "xla"
         if not kernel_supports(kernel, self.M, device=self.device):
@@ -601,57 +794,34 @@ class RegionMatmul:
             return gf_bitxor_lanes(x32, self._sched, state)
         return gf_bitterm_lanes(x32, self._terms, state)
 
-    def _quantum(self, L: int) -> int:
-        # 512 bytes up to one block, then whole blocks (the JAX kernel's
-        # tiling; kept so both packages pad identically)
-        return 512 if L <= 4 * self.BLOCK else 4 * self.BLOCK
 
-    def _on_device(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` on this op's device.  Host input is copied over; a
-        tensor on any other device raises, so work never leaves the card
-        unseen (a card tensor given to a CPU op does not quietly run the
-        plain version)."""
-        if x.device == self.device:
-            return x
-        if x.device.type != "cpu":
-            raise ValueError(f"a {x.device} tensor given to a region op on "
-                             f"{self.device}")
-        return x.to(self.device)
+class ScheduledXor(_LaneOp):
+    """out(R, L) = B(R, C) @ rows(C, L) over GF(2) on one device: the
+    executor of the GF(2) bit-matrix code family (ec/bitmatrix_code.py
+    sends its packet rows here on the torch backend).  On the card it
+    launches gf_sched_xor (K3) over the plan of ``B``; on the CPU it runs
+    the plain version over ``self.sched``, the CSE'd XOR schedule of
+    ``B``.  Same 512-byte lane quantum as RegionMatmul."""
 
-    def encode_lanes(self, x32: torch.Tensor) -> torch.Tensor:
-        """Raw lane-domain entry: x32 (c, n4) int32/uint32 tensor ->
-        (r, n4) int32 tensor on this op's device.  n4 must already be a
-        multiple of 128 (whole tiles) and, beyond one block, of BLOCK."""
-        n4 = x32.shape[-1]
-        if n4 % 128 or (n4 > self.BLOCK and n4 % self.BLOCK):
-            raise ValueError(
-                f"encode_lanes wants n4 % 128 == 0 and, beyond one block, "
-                f"n4 % {self.BLOCK} == 0; got {n4}")
-        return self._lanes_op(self._on_device(x32))
+    def __init__(self, B: np.ndarray, *, device="cuda"):
+        self.B = np.ascontiguousarray(B, dtype=np.uint8) & 1
+        self.R, self.C = self.B.shape
+        self.r, self.c = self.R, self.C
+        self.sched = _cached_schedule(self.B.tobytes(), self.B.shape)
+        self._set_device(device)
+        self._dev_state = None
+        self._cache_lock = threading.Lock()
 
-    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
-        """data (c, L) uint8 (numpy, or a tensor on the host or on this
-        op's device) -> (r, L) uint8 tensor on this op's device.
-        ``donate`` is accepted for the JAX package's signature and
-        ignored: the port does not alias inputs yet."""
-        if isinstance(data, np.ndarray):
-            data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
-        if data.dtype != torch.uint8:
-            raise TypeError(f"expected uint8 data, got {data.dtype}")
-        if data.ndim != 2 or data.shape[0] != self.c:
-            raise ValueError(
-                f"expected ({self.c}, L) data, got {tuple(data.shape)}")
-        L = data.shape[1]
-        if L == 0:
-            return torch.zeros((self.r, 0), dtype=torch.uint8,
-                               device=self.device)
-        pad = (-L) % self._quantum(L)
-        x = self._on_device(data)
-        if pad or not x.is_contiguous() or x.data_ptr() % 16:
-            buf = torch.zeros((self.c, L + pad), dtype=torch.uint8,
-                              device=self.device)
-            buf[:, :L] = x
-            x = buf
-        y32 = self.encode_lanes(x.view(torch.int32))
-        out = y32.view(torch.uint8)
-        return out[:, :L] if pad else out
+    def _device_state(self):
+        """(ptr, entries, SchedXorPlan) on the card, built at first use."""
+        with self._cache_lock:
+            if self._dev_state is None:
+                plan = sched_xor_plan(self.B)
+                self._dev_state = (
+                    torch.from_numpy(plan.ptr).to(self.device),
+                    torch.from_numpy(plan.entries).to(self.device), plan)
+            return self._dev_state
+
+    def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:
+        state = None if x32.device.type == "cpu" else self._device_state()
+        return gf_sched_xor_lanes(x32, self.sched, state)

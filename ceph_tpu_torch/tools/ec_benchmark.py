@@ -5,8 +5,8 @@ encode loop :165-195, decode loop :260-326, output "seconds \\t KiB"
 :193,:324).
 
 The port adds ``--device`` (default ``cuda``): the profile's ``device``
-key, unless a ``--parameter device=...`` sets it.  The port has only the
-``tpu`` plugin so far, which is therefore the default.
+key, unless a ``--parameter device=...`` sets it.  The default plugin is
+``tpu``; ``jerasure``, ``isa`` and ``xor`` are there too.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark \\
@@ -14,6 +14,8 @@ Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark --workload decode \\
         --erasures 2 --erasures-generation exhaustive --device cpu \\
         --parameter technique=cauchy_good
+    python -m ceph_tpu_torch.tools.ec_benchmark --plugin jerasure \\
+        -P technique=liberation -P k=5 -P m=2 --workload decode --erasures 2
 """
 
 from __future__ import annotations
@@ -33,8 +35,7 @@ from .. import ec
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--plugin", "-p", default="tpu",
-                   help="erasure code plugin name (default tpu, the one "
-                        "plugin the port has)")
+                   help="erasure code plugin name (default tpu)")
     p.add_argument("--workload", "-w", default="encode",
                    choices=["encode", "decode"])
     p.add_argument("--size", "-s", type=int, default=80 * 1024 * 1024,

@@ -8,12 +8,14 @@ k, m[, extra]) configuration, and verify later versions reproduce them
 BYTE-EXACTLY — the guard against parity drift across releases and across
 backends (the JAX package and this port must both match the archive).
 
-The port has the ``--check`` side only: the archive is the JAX package's
-(``python -m ceph_tpu.tools.ec_non_regression --create``), and the grid
-holds the plugins the port has.  ``--device`` (default ``cuda``) is the
+The grid is the JAX package's, limited to the plugins the port has;
+``--create`` writes their archives into the ``--base`` the caller names
+(the same payload, so they equal the JAX package's archives byte for
+byte), ``--check`` verifies them.  ``--device`` (default ``cuda``) is the
 profile's device.
 
     python -m ceph_tpu_torch.tools.ec_non_regression --check --base corpus/
+    python -m ceph_tpu_torch.tools.ec_non_regression --create --base out/
 """
 
 from __future__ import annotations
@@ -26,10 +28,29 @@ import numpy as np
 
 from .. import ec
 
+STRIPE_WIDTH = 4096  # matches the reference tool's default stripe-width
+
 #: the JAX package's grid, limited to the plugins the port has
 DEFAULT_GRID = [
+    ("jerasure", {"technique": "reed_sol_van", "k": "2", "m": "1"}),
+    ("jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
+    ("jerasure", {"technique": "reed_sol_r6_op", "k": "6", "m": "2"}),
+    ("jerasure", {"technique": "cauchy_orig", "k": "8", "m": "4"}),
+    ("jerasure", {"technique": "cauchy_good", "k": "8", "m": "4"}),
+    ("isa", {"technique": "reed_sol_van", "k": "8", "m": "4"}),
+    ("isa", {"technique": "cauchy", "k": "8", "m": "4"}),
+    ("jerasure", {"technique": "liberation", "k": "5", "m": "2"}),
+    ("jerasure", {"technique": "blaum_roth", "k": "4", "m": "2"}),
+    ("jerasure", {"technique": "liber8tion", "k": "6", "m": "2"}),
     ("tpu", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
 ]
+
+
+def payload(width: int) -> bytes:
+    """Deterministic content (seeded, not 'X'*n: catches coefficient
+    ordering bugs constant payloads would mask)."""
+    return np.random.default_rng(0xEC).integers(
+        0, 256, width, dtype=np.uint8).tobytes()
 
 
 def config_dir(base: str, plugin: str, profile: dict) -> str:
@@ -42,19 +63,44 @@ def config_dir(base: str, plugin: str, profile: dict) -> str:
 RUN_KEYS = ("backend", "device")
 
 
-def iter_grid(backend: str | None, device: str):
-    for plugin, profile in DEFAULT_GRID:
+def iter_grid(backend: str | None, device: str, grid=None):
+    for plugin, profile in DEFAULT_GRID if grid is None else grid:
         prof = dict(profile, device=device)
         if backend:
             prof["backend"] = backend
         yield plugin, prof
 
 
-def check(base: str, backend: str | None, device: str = "cuda") -> int:
-    failures = 0
+def _archive_dir(base: str, plugin: str, prof: dict) -> str:
+    return config_dir(base, plugin, {k: v for k, v in prof.items()
+                                     if k not in RUN_KEYS})
+
+
+def create(base: str, backend: str | None, device: str = "cuda") -> int:
+    data = payload(STRIPE_WIDTH)
     for plugin, prof in iter_grid(backend, device):
-        d = config_dir(base, plugin, {k: v for k, v in prof.items()
-                                      if k not in RUN_KEYS})
+        codec = ec.factory(plugin, prof)
+        chunks = codec.encode(data)
+        d = _archive_dir(base, plugin, prof)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "content"), "wb") as f:
+            f.write(data)
+        for cid, chunk in sorted(chunks.items()):
+            with open(os.path.join(d, f"chunk.{cid}"), "wb") as f:
+                f.write(chunk.tobytes())
+        print(f"archived {d}: {len(chunks)} chunks")
+    return 0
+
+
+def check(base: str, backend: str | None, device: str = "cuda",
+          grid=None) -> int:
+    """Verify the archives of ``grid`` (default DEFAULT_GRID) under
+    ``base``; 0 when every one is byte-exact."""
+    failures = 0
+    n = 0
+    for plugin, prof in iter_grid(backend, device, grid):
+        n += 1
+        d = _archive_dir(base, plugin, prof)
         if not os.path.isdir(d):
             print(f"MISSING archive {d}", file=sys.stderr)
             failures += 1
@@ -89,13 +135,14 @@ def check(base: str, backend: str | None, device: str = "cuda") -> int:
     if failures:
         print(f"{failures} non-regression failures", file=sys.stderr)
         return 1
-    print("all configurations byte-exact vs archive")
+    print(f"all configurations byte-exact vs archive ({n} directories)")
     return 0
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--base", default="corpus")
+    p.add_argument("--create", action="store_true")
     p.add_argument("--check", action="store_true")
     p.add_argument("--backend", default=None,
                    help="force a math backend (numpy/torch) — the "
@@ -103,9 +150,11 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="device the plugins run on (default cuda)")
     args = p.parse_args(argv)
+    if args.create:
+        return create(args.base, args.backend, args.device)
     if args.check:
         return check(args.base, args.backend, args.device)
-    p.error("need --check")
+    p.error("need --create or --check")
     return 2
 
 

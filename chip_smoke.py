@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its
+"""Drive the PyTorch port's main paths on one CUDA card and hold its
 hand-written kernels against their plain versions.
 
     python3 chip_smoke.py
@@ -11,25 +11,36 @@ H100; the kernels are built for sm_90a).  Phases, one line each:
 2. build   — nvcc builds every kernel from ceph_tpu_torch/csrc/.
 3. kernels — each kernel against its plain version on the card
              (torch.equal) and against the numpy oracle, over the listed
-             matrices and lengths; CUDA-event times at the main shape.
+             matrices and lengths; CUDA-event times at the main shapes.
 4. slice   — the ``tpu`` plugin (reed_sol_van k=8, m=3) on the card:
              encode_batch / decode_batch of 64 x 1 MiB stripes and
              encode / decode through the interface, byte-exact.
 5. cli     — tools.ec_benchmark encode and decode at 80 MiB x 10.
-6. corpus  — tools.ec_non_regression --check on corpus/.
+6. corpus  — tools.ec_non_regression --check on corpus/ (11 directories).
+7. bits    — the jerasure bit-matrix techniques (liberation k=5,
+             blaum_roth k=4, liber8tion k=6, m=2) on the card: a 4 MiB
+             object encoded and decoded for every 1- and 2-erasure
+             pattern, byte-exact against the numpy-backend codec.
+8. bitcli  — tools.ec_benchmark for them at 80 MiB x 3 (encode, decode
+             with 2 erasures) and an isa k=8 m=4 encode.
+9. bitcorpus — their corpus directories again with the device-apply size
+             rule at 0, so the scheduled-XOR kernel sees the corpus bytes.
 
-Phases 4-6 are the main path: the launch counts are set to 0 before
-phase 4 and read after phase 6; every kernel must have launched, the
-plain versions never, and no kernel pick may have skipped a candidate.
-Then one JSON line lists every kernel, and the last line is the
-``{"ok": true, "device": ...}`` object.  Any failure exits nonzero, and
-so does a process with no CUDA card.
+Phases 4-6 are the main path of the ``tpu`` plugin and phases 7-9 the
+bit-matrix path: the launch counts are set to 0 before each path and
+read after it.  The region kernels must have launched on the first, the
+scheduled-XOR kernel on the second, the plain versions on neither, and
+no kernel pick may have skipped a candidate.  Then one JSON line lists
+every kernel, and the last line is the ``{"ok": true, "device": ...}``
+object.  Any failure exits nonzero, and so does a process with no CUDA
+card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -41,7 +52,8 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import ec
-from ceph_tpu_torch.ops import cuda_lib, ec_kernels, gf256
+from ceph_tpu_torch.ec.bitmatrix_code import BitMatrixErasureCode
+from ceph_tpu_torch.ops import cuda_lib, ec_kernels, gf256, xor_schedule
 from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
 from ceph_tpu_torch.utils.perf import kernel_profiler
 
@@ -66,11 +78,22 @@ KERNELS = {
     "bitxor": ("gf_bitxor", "gf_bitxor", ec_kernels.gf_bitxor_graph,
                "ceph_tpu/ops/ec_kernels.py:172"),
 }
+#: K3: (kernel name, launch counter, TPU site)
+SCHED_KERNEL = ("gf_sched_xor", "gf_sched_xor",
+                "ceph_tpu/ops/ec_kernels.py:277")
 SOURCE = "ceph_tpu_torch/csrc/gf_region.cu"
 
 MAIN_L = 8 << 20  # bytes per row at the main shape: 64 x 128 KiB chunks
 CLI_L = 10 << 20  # bytes per row of ec_benchmark's 80 MiB object, k=8
 LENGTHS = (4, 508, 512, 32 * 1024 + 4, 100_000, MAIN_L, CLI_L)
+
+#: the bit-matrix techniques of the corpus grid, (technique, k), m = 2
+BIT_CODES = (("liberation", 5), ("blaum_roth", 4), ("liber8tion", 6))
+#: packet-row length of ec_benchmark's 80 MiB object under liberation k=5
+BIT_CLI_L = 2_396_800
+SCHED_LENGTHS = (4, 64, 508, 512, 32 * 1024 + 4, 100_000, BIT_CLI_L,
+                 10 << 20)
+OBJECT_SIZE = 4 << 20  # the RADOS default object size
 
 
 def say(phase: str, msg: str) -> None:
@@ -117,9 +140,20 @@ def bound_parts(M: np.ndarray, L: int) -> tuple[float, float]:
     return t_bytes * 1e3, t_ops * 1e3
 
 
-def bound(M: np.ndarray, L: int) -> tuple[float, str]:
-    """(least ms, what bounds it): the larger of bound_parts."""
-    t_bytes, t_ops = bound_parts(M, L)
+def sched_bound_parts(B: np.ndarray, L: int) -> tuple[float, float]:
+    """bound_parts for B @ (C, L) over GF(2) on packet rows (K3): each
+    input byte read once and each output byte written once; an AND and
+    an XOR for each one of B per bit column (8 L of them) at the int8
+    rate."""
+    R, C = B.shape
+    t_bytes = (R + C) * L / HBM_BYTES_PER_S
+    t_ops = 2 * int((np.asarray(B) & 1).sum()) * 8 * L / INT8_OPS_PER_S
+    return t_bytes * 1e3, t_ops * 1e3
+
+
+def bound(M: np.ndarray, L: int, parts=bound_parts) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of ``parts(M, L)``."""
+    t_bytes, t_ops = parts(M, L)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -162,6 +196,17 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def run_quiet(what: str, fn, *args) -> str:
+    """``fn(*args)`` with its standard output captured; raises unless
+    it returned 0, and returns the captured text."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    if rc != 0:
+        raise AssertionError(f"{what} exit {rc}")
+    return buf.getvalue().strip()
 
 
 def nvidia_smi(query: str) -> str:
@@ -265,6 +310,121 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
     return results
 
 
+def bit_codec(technique: str, k: int, **profile):
+    return ec.factory("jerasure", {"technique": technique, "k": str(k),
+                                   "m": "2", **profile})
+
+
+def sched_matrices(rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """K3's matrices: the bit-matrix encode drives and decode combos the
+    bit path launches, the widest drive (liber8tion k=32), a random
+    matrix wider than one 16-row block with a zero row, and a 1x1."""
+    lib = bit_codec("liberation", 5, backend="numpy")
+    l8 = bit_codec("liber8tion", 6, backend="numpy")
+    Z = (rng.random((24, 64)) < 0.5).astype(np.uint8)
+    Z[7] = 0
+    return {
+        "liberation k=5 14x35": lib.bitmatrix,
+        "liberation decode {0,1} 14x35": lib._decode_combo(
+            (0, 1), (2, 3, 4, 5, 6)),
+        "blaum_roth k=4 12x24": bit_codec("blaum_roth", 4,
+                                          backend="numpy").bitmatrix,
+        "liber8tion k=6 16x48": l8.bitmatrix,
+        "liber8tion decode {0,6} 16x48": l8._decode_combo(
+            (0, 6), (1, 2, 3, 4, 5, 7)),
+        "liber8tion decode {0,1} 16x48": l8._decode_combo(
+            (0, 1), (2, 3, 4, 5, 6, 7)),
+        "liber8tion k=32 16x256": bit_codec("liber8tion", 32,
+                                            backend="numpy").bitmatrix,
+        "random 24x64, a zero row": Z,
+        "1x1": np.ones((1, 1), dtype=np.uint8),
+    }
+
+
+def phase_sched_xor(dev: torch.device, rng: np.random.Generator,
+                    lengths=SCHED_LENGTHS, n_time: int = 30) -> dict:
+    """K3 against its plain version (equal bytes, all columns) and the
+    numpy oracle xor_schedule.naive_apply (oracle_columns); then
+    CUDA-event times of the liberation encode and the densest liber8tion
+    decode at the packet-row lengths of an 80 MiB object, and of the
+    codec's device permutes around the first."""
+    name, _ctr, site = SCHED_KERNEL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    mats = sched_matrices(rng)
+    err = 0
+    cases = 0
+    for label, B in mats.items():
+        op = ec_kernels.ScheduledXor(B, device=dev)
+        plain = ec_kernels.gf_sched_xor_graph(B)
+        for L in lengths:
+            data = torch.randint(0, 256, (B.shape[1], L), dtype=torch.uint8,
+                                 device=dev, generator=gen)
+            got = op(data)
+            want = plain(data)
+            torch.cuda.synchronize(dev)
+            diff = int((got.int() - want.int()).abs().max())
+            err = max(err, diff)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} {label} L={L}: differs from its plain version "
+                    f"(max abs err {diff})")
+            cols = torch.from_numpy(oracle_columns(L)).to(dev)
+            oracle = xor_schedule.naive_apply(B, data[:, cols].cpu().numpy())
+            if not np.array_equal(got[:, cols].cpu().numpy(), oracle):
+                raise AssertionError(
+                    f"{name} {label} L={L}: differs from the oracle")
+            cases += 1
+            del data, got, want
+    say("kernels", f"{name}: {cases} cases ({len(mats)} matrices x "
+                   f"{len(lengths)} lengths) equal to the plain version "
+                   "and the oracle")
+    row = None
+    size = 80 << 20
+    for label, technique, k in (
+            ("liberation k=5 14x35", "liberation", 5),
+            ("liber8tion decode {0,1} 16x48", "liber8tion", 6)):
+        B = mats[label]
+        op = ec_kernels.ScheduledXor(B, device=dev)
+        codec = bit_codec(technique, k, backend="numpy")
+        w = codec.w
+        Lrow = codec.get_chunk_size(size) // w
+        Lp = Lrow + (-Lrow) % op._quantum(Lrow)  # the width it launches
+        data = torch.randint(0, 256, (B.shape[1], Lp), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        x32 = data.view(torch.int32)
+        ms = cuda_ms(lambda: op.encode_lanes(x32), n_time)
+        plain = ec_kernels.gf_sched_xor_graph(B)
+        plain_ms = cuda_ms(lambda: plain(data), max(5, n_time // 4), warm=1)
+        bound_ms, bound_by = bound(B, Lp, sched_bound_parts)
+        t_bytes, t_ops = sched_bound_parts(B, Lp)
+        clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+        say("kernels", f"{name}: {label} ({int(B.sum())} ones) at {Lp} "
+                       f"B/row (an {size >> 20} MiB object): {ms:.4f} ms "
+                       f"= {sum(B.shape) * Lp / ms / 1e6:.1f} GB/s, plain "
+                       f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                       f"({bound_by}; bytes {t_bytes:.4f}, operations "
+                       f"{t_ops:.4f}), {ms / bound_ms:.2f}x the bound; "
+                       f"after timing: {clocks}")
+        if row is None:
+            row = {"name": name, "route": "cuda", "source": SOURCE,
+                   "replaces": site, "launches": 0, "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
+            chunks = torch.randint(0, 256, (k, Lrow * w), dtype=torch.uint8,
+                                   device=dev, generator=gen)
+            g = Lrow // 64
+            perm_in = cuda_ms(lambda: chunks.view(k, g, w, 64).permute(
+                0, 2, 1, 3).reshape(k * w, g * 64), n_time)
+            out = torch.empty((2 * w, Lrow), dtype=torch.uint8, device=dev)
+            perm_out = cuda_ms(lambda: out.view(2, w, g, 64).permute(
+                0, 2, 1, 3).reshape(2, Lrow * w), n_time)
+            say("kernels", f"the codec's device permutes around it: in "
+                           f"{perm_in:.4f} ms, out {perm_out:.4f} ms")
+        del data
+    return row
+
+
 def phase_slice(dev: torch.device, rng: np.random.Generator,
                 batch: int = 64, chunk: int = 128 * 1024) -> None:
     """The tpu plugin's encode/decode through its entry points."""
@@ -317,13 +477,9 @@ def phase_cli(dev: torch.device, size: int = 80 << 20,
               "--device", str(dev)]
     for extra in (["--workload", "encode"],
                   ["--workload", "decode", "--erasures", "3"]):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = ec_benchmark.main(common + extra)
-        if rc != 0:
-            raise AssertionError(f"ec_benchmark {extra} exit {rc}")
-        say("cli", f"ec_benchmark {' '.join(extra)}: "
-                   f"{buf.getvalue().strip()}")
+        out = run_quiet(f"ec_benchmark {extra}", ec_benchmark.main,
+                        common + extra)
+        say("cli", f"ec_benchmark {' '.join(extra)}: {out}")
     rng = np.random.default_rng(SEED)
     codec = ec.factory("tpu", {"k": "8", "m": "3", "device": str(dev)})
     data = rng.integers(0, 256, size, dtype=np.uint8)
@@ -346,14 +502,99 @@ def phase_cli(dev: torch.device, size: int = 80 << 20,
 
 
 def phase_corpus(dev: torch.device) -> None:
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = ec_non_regression.main(
-            ["--check", "--base", os.path.join(REPO, "corpus"),
-             "--device", str(dev)])
-    if rc != 0:
-        raise AssertionError(f"ec_non_regression --check exit {rc}")
-    say("corpus", buf.getvalue().strip())
+    say("corpus", run_quiet(
+        "ec_non_regression --check", ec_non_regression.main,
+        ["--check", "--base", os.path.join(REPO, "corpus"),
+         "--device", str(dev)]))
+
+
+def phase_bits(dev: torch.device, rng: np.random.Generator,
+               size: int = OBJECT_SIZE) -> int:
+    """The bit-matrix techniques through the plugin's entry points: an
+    object of ``size`` random bytes encoded, then decoded for every
+    pattern of 1 or 2 erasures, each byte-exact against the
+    numpy-backend codec and the original chunks.  Returns the applies
+    that stayed on the host under the size rule."""
+    host_applies = 0
+    for technique, k in BIT_CODES:
+        codec = bit_codec(technique, k, device=str(dev))
+        host = bit_codec(technique, k, backend="numpy")
+        obj = rng.integers(0, 256, size, dtype=np.uint8)
+        before = ec_kernels.launch_counts()[SCHED_KERNEL[1]]
+        t0 = time.perf_counter()
+        chunks = codec.encode(obj)
+        want = host.encode(obj)
+        for i in want:
+            if not np.array_equal(chunks[i], want[i]):
+                raise AssertionError(f"{technique} encode: chunk {i}")
+        n = codec.chunk_count
+        patterns = [p for r in (1, 2)
+                    for p in itertools.combinations(range(n), r)]
+        for pat in patterns:
+            avail = {i: c for i, c in chunks.items() if i not in pat}
+            got = codec.decode(list(pat), avail)
+            ref = host.decode(list(pat), avail)
+            for i in pat:
+                if not (np.array_equal(got[i], chunks[i])
+                        and np.array_equal(ref[i], got[i])):
+                    raise AssertionError(f"{technique} decode {pat}: "
+                                         f"chunk {i}")
+        launches = ec_kernels.launch_counts()[SCHED_KERNEL[1]] - before
+        host_applies += codec.host_applies
+        say("bits", f"{technique} k={k} m=2: {size >> 10} KiB object "
+                    f"encoded and decoded for all {len(patterns)} patterns "
+                    f"of 1 or 2 erasures, byte-exact against the numpy "
+                    f"codec ({time.perf_counter() - t0:.3f} s, "
+                    f"{launches} {SCHED_KERNEL[0]} launches, "
+                    f"{codec.host_applies} host-path applies)")
+    return host_applies
+
+
+def phase_bit_cli(dev: torch.device, size: int = 80 << 20,
+                  iterations: int = 3) -> None:
+    """tools.ec_benchmark for the bit-matrix techniques (encode, and
+    decode with 2 erasures) and one isa k=8 m=4 encode."""
+    runs = []
+    for technique, k in BIT_CODES:
+        prof = ["--plugin", "jerasure", "-P", f"technique={technique}",
+                "-P", f"k={k}", "-P", "m=2"]
+        runs += [prof + ["--workload", "encode"],
+                 prof + ["--workload", "decode", "--erasures", "2"]]
+    runs.append(["--plugin", "isa", "-P", "k=8", "-P", "m=4",
+                 "--workload", "encode"])
+    for args in runs:
+        out = run_quiet(f"ec_benchmark {args}", ec_benchmark.main,
+                        args + ["--size", str(size), "--iterations",
+                                str(iterations), "--device", str(dev)])
+        say("bitcli", f"ec_benchmark {' '.join(args)} --size {size} "
+                      f"--iterations {iterations}: {out}")
+
+
+def phase_bit_corpus(dev: torch.device) -> None:
+    """The bit-matrix corpus directories with the size rule at 0: at 4
+    KiB stripes every apply is under it and would stay on the host."""
+    grid = [(plugin, prof) for plugin, prof in ec_non_regression.DEFAULT_GRID
+            if prof.get("technique") in dict(BIT_CODES)]
+    saved = BitMatrixErasureCode.DEVICE_APPLY_MIN_BYTES
+    BitMatrixErasureCode.DEVICE_APPLY_MIN_BYTES = 0
+    try:
+        out = run_quiet("bit-matrix corpus check", ec_non_regression.check,
+                        os.path.join(REPO, "corpus"), None, str(dev), grid)
+    finally:
+        BitMatrixErasureCode.DEVICE_APPLY_MIN_BYTES = saved
+    say("bitcorpus", f"device-apply size rule at 0: {out}")
+
+
+def bit_path(dev: torch.device, rng: np.random.Generator, *,
+             size: int = OBJECT_SIZE, cli_size: int = 80 << 20,
+             iterations: int = 3) -> tuple[dict[str, int], int]:
+    """Phases 7-9 with the launch counts set to 0 before and read after;
+    returns the counts and the host-path applies of phase 7."""
+    ec_kernels.reset_launches()
+    host_applies = phase_bits(dev, rng, size)
+    phase_bit_cli(dev, cli_size, iterations)
+    phase_bit_corpus(dev)
+    return ec_kernels.launch_counts(), host_applies
 
 
 def main_path(dev: torch.device, rng: np.random.Generator, *,
@@ -369,10 +610,12 @@ def main_path(dev: torch.device, rng: np.random.Generator, *,
     return ec_kernels.launch_counts()
 
 
-def check_main_path(counts: dict[str, int], realizations=KERNELS) -> None:
+def check_main_path(counts: dict[str, int],
+                    counters=tuple(k[1] for k in KERNELS.values())) -> None:
+    """Every launch counter in ``counters`` moved, the plain versions
+    never ran and no kernel pick skipped a candidate."""
     say("launches", json.dumps(counts))
-    for realization in realizations:
-        ctr = KERNELS[realization][1]
+    for ctr in counters:
         if counts[ctr] <= 0:
             raise AssertionError(f"{ctr} never launched on the main path")
     if counts["plain"]:
@@ -386,18 +629,28 @@ def check_main_path(counts: dict[str, int], realizations=KERNELS) -> None:
                     + json.dumps({s: p["picked"] for s, p in picks.items()}))
 
 
-def profile_line(wall_s: float) -> None:
-    """Where the main path's wall time went, from the codec's kernel
-    profiler: first launches (device tables, library load), launches
-    (kernel + synchronize) and device->host copies."""
+def profile_totals() -> dict[str, list]:
+    """kind -> [count, seconds] summed over the kernel profiler's
+    signatures."""
     tot = {k: [0, 0.0] for k in ("compile", "device", "sync")}
     for agg in kernel_profiler().dump()["signatures"].values():
         for k, v in tot.items():
             v[0] += agg[k]
             v[1] += agg[f"{k}_seconds"]
-    say("profile", f"main path {wall_s:.3f} s wall; " + ", ".join(
+    return tot
+
+
+def profile_line(wall_s: float, before=None, what: str = "main path",
+                 rest: str = "copies to the card, numpy") -> None:
+    """Where a path's wall time went, from the codecs' kernel profiler
+    (less the ``before`` totals): first launches (device tables, library
+    load), launches (kernel + synchronize) and device->host copies."""
+    tot = profile_totals()
+    for k, (n, sec) in (before or {}).items():
+        tot[k] = [tot[k][0] - n, tot[k][1] - sec]
+    say("profile", f"{what} {wall_s:.3f} s wall; " + ", ".join(
         f"{k} {n} x {sec:.4f} s" for k, (n, sec) in tot.items())
-        + "; the rest is host work (copies to the card, numpy)")
+        + f"; the rest is host work ({rest})")
 
 
 def main() -> int:
@@ -411,14 +664,26 @@ def main() -> int:
     clock_hz = phase_device()
     phase_build()
     kernels = phase_kernels(dev, rng, clock_hz)
+    sched_row = phase_sched_xor(dev, rng)
     t_main = time.perf_counter()
     counts = main_path(dev, rng)
     profile_line(time.perf_counter() - t_main)
     check_main_path(counts)
     for realization, row in kernels.items():
         row["launches"] = counts[KERNELS[realization][1]]
+    before = profile_totals()
+    t_bits = time.perf_counter()
+    bit_counts, host_applies = bit_path(dev, rng)
+    profile_line(time.perf_counter() - t_bits, before, "bit path",
+                 "copies to the card, the numpy codec's checks")
+    check_main_path(bit_counts, (SCHED_KERNEL[1],))
+    if host_applies:
+        raise AssertionError(f"{host_applies} bit-path applies of the "
+                             f"{OBJECT_SIZE >> 20} MiB objects stayed on "
+                             "the host")
+    sched_row["launches"] = bit_counts[SCHED_KERNEL[1]]
     say("done", f"{time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": list(kernels.values()) + [sched_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
