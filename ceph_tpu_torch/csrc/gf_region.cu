@@ -20,34 +20,54 @@
 //   bytes and staged once per block in shared memory with the coefficient
 //   bytes beside it as the skip / plain-XOR flag: 9 bytes per coefficient,
 //   at most 9 KiB for r, c <= 32.
+//   What bounds it: bytes are c*N read and r*N written (for the 8+3 encode
+//   at N = 8 MiB per row, 88 MiB, ~27.5 us at 3.35 TB/s).  Its own
+//   instruction mix is larger: per lane column of 32 input bytes the 8+3
+//   encode is 332 shifts, ANDs and XORs on the ALU pipe and 112
+//   multiply-adds on the FMA pipe, 64 results per clock per SM each; at
+//   132 SMs and 1.98 GHz the ALU pipe alone needs ~42 us.
 //
 // gf_bitxor (K2) replaces the Pallas bitxor body of the same kernel,
 //   ceph_tpu/ops/ec_kernels.py _bitxor_rows (chosen by RegionMatmul
-//   _rows_core): the product as the CSE'd XOR program over GF(2) bit-planes
-//   built by ops/xor_schedule.build_schedule.  It does not generate code per
-//   matrix: the host lowers the schedule into a flat program of int4
-//   instructions (ec_kernels.lower_schedule) whose node slots are allocated
-//   by liveness, and this kernel interprets it.  The slots live in shared
-//   memory laid out [slot][thread], so a thread only ever touches its own
-//   column and the program needs no barrier.  Each thread handles one uint32
-//   lane per iteration of a grid-stride loop.
-//
-// What bounds them on an H100: bytes are c*N read and r*N written (for the
-// 8+3 encode at N = 8 MiB per row, 88 MiB, ~27.5 us at 3.35 TB/s).  Integer
-// issue is larger for K1's own instruction mix: per lane column of 32 input
-// bytes the 8+3 encode is 332 shifts, ANDs and XORs on the ALU pipe and 112
-// multiply-adds on the FMA pipe, 64 results per clock per SM each; at
-// 132 SMs and 1.98 GHz the ALU pipe alone needs ~42 us, so K1 is bound by
-// that pipe, not by bytes.  K2 trades the multiplies for a CSE'd XOR program
-// (93 shared XORs for the same matrix, 558 operations per lane counting plane
-// extraction and packing), and every one of them reads and writes shared
-// memory, so it is bound by shared-memory traffic and instruction decode.
-// Neither uses the tensor cores; wgmma, TMA and the nibble-table design are
-// later work.
+//   _rows_core): the product as XORs of GF(2) bit-planes, B = bitmatrix(M)
+//   (8r x 8c), where output plane 8i+t is the XOR of the input planes 8j+s
+//   with B[8i+t, 8j+s] = 1.  It is bit-sliced:
+//   1. A thread owns a 32-byte column group of every row: the uint4 at g and
+//      the uint4 at g + n4/8 (two coalesced loads a row, kBitxorBatch rows
+//      in flight at once).  It transposes the group's 8 words in registers
+//      into 8 plane words (bitslice: three delta-swap stages), word s
+//      holding bit s of all 32 bytes, and stores them in shared memory laid
+//      out [plane][thread], so a thread only touches its own column and the
+//      loop needs no barrier.
+//   2. Each output plane is one register, the XOR of the planes that row of
+//      B names: the host lists them (ec_kernels.bitxor_plan) as a CSR whose
+//      rows are padded to whole quads with the zero plane 8c, read as one
+//      warp-uniform int4 per four planes (staged as [plane][thread] offsets,
+//      so a term is an add, a shared load and half a 3-input XOR).  No term
+//      is predicated off and no plane is shifted: the shift of the JAX body
+//      is the inverse transpose.
+//   3. The 8 planes of output row i are transposed back (bitslice is its
+//      own inverse) and stored as two uint4.
+//   The plan is staged in shared memory beside the planes when both fit
+//   48 KiB, else read from global memory through the cache.  Block size:
+//   the largest of 256..32 threads whose planes fit 40 KiB (128 for c = 8).
+//   What bounds it: per 256 input bytes of the 3x8 encode about 660
+//   transpose operations (11 transposes of ~60), 576 plane loads and 64
+//   plane stores, so ~19 us on the ALU pipe and ~23 us of shared-memory
+//   accesses at 132 SMs and 1.98 GHz, against ~27.5 us of bytes.  Measured
+//   on an H100 SXM at 700 W (chip_smoke.py, and experiments/
+//   kernel_variants.py, which switches the loop's phases off one at a
+//   time): the input phase alone takes ~40 us, the CSR walk alone ~40 us,
+//   the transposes under 1 % of the whole, and the two phases overlap only
+//   in part, so it runs at ~2.1x the byte bound, level with K1.  Keep the
+//   loop in one function: with its input phase in a device function of its
+//   own, ptxas kept the shared-memory base in a vector register instead of
+//   a uniform one, the CSR walk's addresses moved from LEA to IMAD, and
+//   the kernel ran slower.
 //
 // gf_sched_xor (K3) replaces the Pallas kernel of the JAX package's
 //   ScheduledXor (ceph_tpu/ops/ec_kernels.py ScheduledXor._rows_op, body
-//   _sched_plane_rows): out(R, n4) = B(R, C) . x(C, n4) over GF(2) for the
+//   _sched_plane_rows): out(R, L) = B(R, C) . x(C, L) over GF(2) for the
 //   bit-matrix codes (liberation, blaum_roth, liber8tion), whose rows are
 //   packet rows already, so each output row is the XOR of the input rows
 //   where B[r, c] = 1, with no bit extraction and no packing.  It does not
@@ -56,21 +76,37 @@
 //   (input row, mask) pairs of the inputs that feed it, mask bit i set when
 //   the input feeds row i of the block.  A thread walks 16-byte column groups
 //   (uint4) in a grid-stride loop, keeps the block's kSchedRows accumulators
-//   in registers, reads each listed input row once (kSchedBatch loads in
-//   flight), XORs it into the rows of its mask and stores the block's rows;
-//   an empty row stores zeros.  The mask is the same for the whole warp, so
-//   the predicated XORs never diverge.  The plan is staged in shared memory
-//   when it fits 48 KiB, else read from global memory through the cache.
+//   in registers, reads each listed input row once and XORs it into the
+//   rows of its mask, then stores the block's rows; an empty row stores
+//   zeros.  The loads are pipelined: the next kBatch inputs are in flight
+//   while the current kBatch are XORed in (on an H100 SXM at 700 W the
+//   loop that waited for each batch before XORing it ran at ~1.5 TB/s,
+//   the pipelined one at ~2.1 TB/s, against ~2.5 TB/s for a device copy
+//   of the same bytes).  It needs ~142 registers, so it runs in 128-thread
+//   blocks: three fit an SM, where one 256-thread block would.  The plan is
+//   staged in shared memory when it fits 48 KiB, else read from global
+//   memory through the cache.
+//   Packet mode: the codec's chunks are (n, L) with L = G * w * 64, and
+//   packet row j*w + p at granule gi and byte o lives at byte
+//   j*L + gi*w*64 + p*64 + o.  The plan names each input row as (j, p), and
+//   column group g = (gi, o / 16) reads and writes at those addresses, so
+//   the chunks go in and come out as they are, with no permute around the
+//   kernel.  Plane-row mode is the same addressing at w = 1.
 //   What bounds it: bytes.  Every input row is read once per block of 16
 //   output rows (once for every bit-matrix code of m = 2, where R = 2w <= 16)
 //   and every output row is written once, (C + R) * L bytes: 117 MB for the
 //   liberation k=5 encode of an 80 MiB object (L = 2,396,800), 35 us at
 //   3.35 TB/s.  The work is about 80 instructions per (input row, block) pair
 //   per column group: 35 * 80 per 16 bytes for that encode, ~13 M warp
-//   instructions, ~12.5 us at 4 issued per clock on 132 SMs at 1.98 GHz.
-//   A row-by-row CSR (one load per nonzero of B) would read each input up to
-//   R times and lean on L1/L2 to absorb the re-reads; the register block
-//   reads it once.
+//   instructions, ~12.5 us at 4 issued per clock on 132 SMs at 1.98 GHz;
+//   it hides the loads only when they are pipelined.
+//   The knobs the code fixes (kSchedBatch loads in flight, kSchedThreads a
+//   block, kSchedPerSm blocks per SM; no register cap, plain stores) were
+//   chosen by timing the others with experiments/kernel_variants.py, which
+//   instantiates this same loop at other template arguments.
+//
+// None of them uses the tensor cores; wgmma, TMA and the nibble-table
+// design are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,12 +116,13 @@ namespace {
 constexpr uint32_t kMask = 0x01010101u;
 constexpr int kRowBlock = 4;
 constexpr int kBitermThreads = 256;
-constexpr int kSchedRows = 16;  // must match ec_kernels.SCHED_ROW_BLOCK
-constexpr int kSchedBatch = 4;
-constexpr int kSchedThreads = 256;
-
-// program opcodes; must match ceph_tpu_torch/ops/ec_kernels.py
-enum : int { kLoad = 0, kXor = 1, kInit = 2, kAcc = 3, kStore = 4, kZero = 5 };
+constexpr int kBitxorBatch = 8;     // input rows loaded at once by gf_bitxor
+constexpr int kSchedRows = 16;      // must match ec_kernels.SCHED_ROW_BLOCK
+constexpr int kSchedBatch = 4;      // loads in flight a thread in gf_sched_xor
+constexpr int kSchedThreads = 128;  // gf_sched_xor's block size
+constexpr int kSchedPerSm = 8;      // gf_sched_xor's grid cap, blocks per SM
+constexpr int kPacketLanes = 4;     // uint4 lanes of a 64-byte packet
+constexpr size_t kSmemDefault = 48 * 1024;
 
 __device__ __forceinline__ void xor4(uint4& a, const uint4& b) {
   a.x ^= b.x; a.y ^= b.y; a.z ^= b.z; a.w ^= b.w;
@@ -149,61 +186,154 @@ __global__ void gf_bitterm_kernel(const uint4* __restrict__ x,
   }
 }
 
-__global__ void gf_bitxor_kernel(const uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ y,
-                                 const int4* __restrict__ prog, int n_prog,
-                                 long long n4) {
-  extern __shared__ uint32_t slots[];  // [slot][blockDim.x]
-  const int t = threadIdx.x;
-  const int bd = blockDim.x;
-  const long long stride = static_cast<long long>(gridDim.x) * bd;
-  for (long long lane = static_cast<long long>(blockIdx.x) * bd + t;
-       lane < n4; lane += stride) {
-    int cur_row = -1;  // last input row loaded: planes of one row share it
-    uint32_t cur = 0;
-    for (int pc = 0; pc < n_prog; ++pc) {
-      const int4 in = __ldg(prog + pc);
-      switch (in.x) {
-        case kLoad:  // slot y = plane w of input row z
-          if (in.z != cur_row) {
-            cur = __ldg(x + static_cast<long long>(in.z) * n4 + lane);
-            cur_row = in.z;
-          }
-          slots[in.y * bd + t] = (cur >> in.w) & kMask;
-          break;
-        case kXor:  // slot y = slot z ^ slot w
-          slots[in.y * bd + t] = slots[in.z * bd + t] ^ slots[in.w * bd + t];
-          break;
-        case kInit:  // accumulator y = slot z << w
-          slots[in.y * bd + t] = slots[in.z * bd + t] << in.w;
-          break;
-        case kAcc:  // accumulator y ^= slot z << w
-          slots[in.y * bd + t] ^= slots[in.z * bd + t] << in.w;
-          break;
-        case kStore:  // output row y = slot z
-          y[static_cast<long long>(in.y) * n4 + lane] = slots[in.z * bd + t];
-          break;
-        case kZero:  // output row y = 0
-          y[static_cast<long long>(in.y) * n4 + lane] = 0u;
-          break;
-        default:
-          break;
+// One delta-swap stage over the pairs (k, k + kStride) of w: bit kStride of
+// the word number trades places with bit kStride of the bit position.
+template <int kStride>
+__device__ __forceinline__ void swap_stage(uint32_t (&w)[8], uint32_t m) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k & kStride) continue;
+    const uint32_t t = ((w[k] >> kStride) ^ w[k + kStride]) & m;
+    w[k + kStride] ^= t;
+    w[k] ^= t << kStride;
+  }
+}
+
+// 32 bytes as 8 little-endian words (word k = bytes 4k..4k+3) <-> 8 planes:
+// afterwards word s holds bit s of every byte, bit 8b + k of it from byte
+// 4k + b.  The three stages swap the word number's bits with the low three
+// bits of the bit position, so the transpose is its own inverse.
+__device__ __forceinline__ void bitslice(uint32_t (&w)[8]) {
+  swap_stage<1>(w, 0x55555555u);
+  swap_stage<2>(w, 0x33333333u);
+  swap_stage<4>(w, 0x0f0f0f0fu);
+}
+
+// K2's loop.  It loads kBatch input rows at once.  kIn (the input phase:
+// loads, transposes, plane stores), kWalk (the CSR walk) and kSlice (the
+// transposes) are always on in the library, which computes the product;
+// experiments/kernel_variants.cu switches them off one at a time to time
+// the phases of this same loop alone.
+template <bool kStage, int kBatch = kBitxorBatch, bool kIn = true,
+          bool kWalk = true, bool kSlice = true>
+__global__ void gf_bitxor_kernel(const uint4* __restrict__ x,
+                                 uint4* __restrict__ y,
+                                 const int* __restrict__ ptr,
+                                 const int4* __restrict__ idx, int r, int c,
+                                 int n_quads, long long groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x;
+  const int n_planes = 8 * c + 1;  // plane 8c stays zero: the CSR's padding
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem);  // [plane][thread]
+  const int* p = ptr;
+  const int4* q = idx;
+  if constexpr (kStage) {  // plane numbers staged as [plane][thread] offsets
+    int4* s_idx = reinterpret_cast<int4*>(planes + n_planes * nt);
+    int* s_ptr = reinterpret_cast<int*>(s_idx + n_quads);
+    for (int t = threadIdx.x; t < n_quads; t += nt) {
+      const int4 o = idx[t];
+      s_idx[t] = make_int4(o.x * nt, o.y * nt, o.z * nt, o.w * nt);
+    }
+    for (int t = threadIdx.x; t <= 8 * r; t += nt) s_ptr[t] = ptr[t];
+    __syncthreads();
+    p = s_ptr;
+    q = s_idx;
+  }
+  uint32_t* pt = planes + threadIdx.x;
+  pt[(n_planes - 1) * nt] = 0u;
+  const long long row = 2 * groups;  // uint4 lanes per row
+  const long long stride = static_cast<long long>(gridDim.x) * nt;
+  for (long long g = static_cast<long long>(blockIdx.x) * nt + threadIdx.x;
+       g < groups; g += stride) {
+    for (int j0 = 0; kIn && j0 < c; j0 += kBatch) {
+      uint4 v[2 * kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (j0 + b < c) {
+          const uint4* xr = x + static_cast<long long>(j0 + b) * row + g;
+          v[2 * b] = xr[0];
+          v[2 * b + 1] = xr[groups];
+        }
       }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (j0 + b < c) {
+          uint32_t w[8] = {v[2 * b].x,     v[2 * b].y,     v[2 * b].z,
+                           v[2 * b].w,     v[2 * b + 1].x, v[2 * b + 1].y,
+                           v[2 * b + 1].z, v[2 * b + 1].w};
+          if constexpr (kSlice) bitslice(w);
+#pragma unroll
+          for (int s = 0; s < 8; ++s) pt[(8 * (j0 + b) + s) * nt] = w[s];
+        }
+      }
+    }
+    for (int i = 0; i < r; ++i) {
+      uint32_t acc[8];
+      if constexpr (kWalk) {
+        int k = p[8 * i];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          uint32_t a = 0u;
+          const int end = p[8 * i + s + 1];
+#pragma unroll 2
+          for (; k < end; ++k) {
+            int4 o = q[k];
+            if constexpr (!kStage) {
+              o = make_int4(o.x * nt, o.y * nt, o.z * nt, o.w * nt);
+            }
+            a ^= (pt[o.x] ^ pt[o.y]) ^ (pt[o.z] ^ pt[o.w]);
+          }
+          acc[s] = a;
+        }
+      } else {  // the first 8 planes, as they are
+#pragma unroll
+        for (int s = 0; s < 8; ++s) acc[s] = pt[s * nt];
+      }
+      if constexpr (kSlice) bitslice(acc);
+      uint4* yr = y + static_cast<long long>(i) * row + g;
+      yr[0] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+      yr[groups] = make_uint4(acc[4], acc[5], acc[6], acc[7]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kSchedThreads)
+// gf_sched_xor's XOR step: input v[j] into the accumulators of the rows
+// its mask names.  The mask is the same for the whole warp, so the
+// predicated XORs never diverge.
+struct MaskedXor {
+  template <int kBatch>
+  __device__ __forceinline__ static void apply(uint4 (&acc)[kSchedRows],
+                                               const uint4 (&v)[kBatch],
+                                               const uint32_t (&mask)[kBatch]) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+#pragma unroll
+      for (int i = 0; i < kSchedRows; ++i) {
+        if ((mask[j] >> i) & 1u) xor4(acc[i], v[j]);
+      }
+    }
+  }
+};
+
+// K3's loop.  Its fixed knobs (loads in flight, block size, the register
+// cap of __launch_bounds__, streaming stores, the XOR step) are template
+// arguments so that experiments/kernel_variants.cu can time other
+// settings of this same loop; the library instantiates one
+// (gf_sched_xor below).
+template <int kBatch, int kThreads, int kMinBlocks = 1, bool kStream = false,
+          class XorIn = MaskedXor>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 gf_sched_xor_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
                     const int* __restrict__ ptr,
-                    const int2* __restrict__ entries, int rows, int n_entries,
-                    bool stage, long long groups) {
+                    const int4* __restrict__ entries, int rows,
+                    int n_entries, int w, bool stage, long long lanes,
+                    long long cols) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_blocks = (rows + kSchedRows - 1) / kSchedRows;
   const int* p = ptr;
-  const int2* e = entries;
+  const int4* e = entries;
   if (stage) {  // the same for every thread of the launch
-    int2* s_e = reinterpret_cast<int2*>(smem);
+    int4* s_e = reinterpret_cast<int4*>(smem);
     int* s_p = reinterpret_cast<int*>(s_e + n_entries);
     for (int t = threadIdx.x; t < n_entries; t += blockDim.x) s_e[t] = entries[t];
     for (int t = threadIdx.x; t <= n_blocks; t += blockDim.x) s_p[t] = ptr[t];
@@ -211,40 +341,68 @@ gf_sched_xor_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
     p = s_p;
     e = s_e;
   }
+  // a row is `lanes` uint4 lanes and `cols` = lanes / w column groups;
+  // packet p of chunk j at granule gi starts at lane
+  // j * lanes + gi * w * kPacketLanes + p * kPacketLanes
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       g < groups; g += stride) {
+       g < cols; g += stride) {
+    const long long lane = (g / kPacketLanes) * w * kPacketLanes +
+                           g % kPacketLanes;
     for (int b = 0; b < n_blocks; ++b) {
       uint4 acc[kSchedRows];
 #pragma unroll
       for (int i = 0; i < kSchedRows; ++i) acc[i] = make_uint4(0, 0, 0, 0);
       const int end = p[b + 1];
-      for (int k = p[b]; k < end; k += kSchedBatch) {
-        uint4 v[kSchedBatch];
-        uint32_t mask[kSchedBatch];
+      // kBatch entries: their inputs and row masks (0 past the end)
+      auto load = [&](int k, uint4 (&v)[kBatch], uint32_t (&mask)[kBatch]) {
 #pragma unroll
-        for (int j = 0; j < kSchedBatch; ++j) {
+        for (int j = 0; j < kBatch; ++j) {
           mask[j] = 0u;
           v[j] = make_uint4(0, 0, 0, 0);
           if (k + j < end) {
-            const int2 en = e[k + j];
-            mask[j] = static_cast<uint32_t>(en.y);
-            v[j] = x[static_cast<long long>(en.x) * groups + g];
+            const int4 en = e[k + j];  // (chunk, packet, mask, 0)
+            mask[j] = static_cast<uint32_t>(en.z);
+            v[j] = x[static_cast<long long>(en.x) * lanes +
+                     en.y * kPacketLanes + lane];
           }
         }
+      };
+      // pipelined: the next batch's loads are in flight while this batch
+      // is XORed in
+      uint4 v[kBatch];
+      uint32_t mask[kBatch];
+      load(p[b], v, mask);
+      for (int k = p[b]; k < end; k += kBatch) {
+        uint4 vn[kBatch];
+        uint32_t mn[kBatch];
+        load(k + kBatch, vn, mn);
+        XorIn::apply(acc, v, mask);
 #pragma unroll
-        for (int j = 0; j < kSchedBatch; ++j) {
-#pragma unroll
-          for (int i = 0; i < kSchedRows; ++i) {
-            if ((mask[j] >> i) & 1u) xor4(acc[i], v[j]);
-          }
+        for (int j = 0; j < kBatch; ++j) {
+          v[j] = vn[j];
+          mask[j] = mn[j];
         }
       }
       const int r0 = b * kSchedRows;
+      int jo = r0 / w;
+      int po = r0 - jo * w;
 #pragma unroll
       for (int i = 0; i < kSchedRows; ++i) {
-        if (r0 + i < rows) y[static_cast<long long>(r0 + i) * groups + g] = acc[i];
+        if (r0 + i < rows) {
+          uint4* dst = y + static_cast<long long>(jo) * lanes +
+                       po * kPacketLanes + lane;
+          if constexpr (kStream) {
+            __stcs(dst, acc[i]);
+          } else {
+            *dst = acc[i];
+          }
+        }
+        if (++po == w) {
+          po = 0;
+          ++jo;
+        }
       }
     }
   }
@@ -265,6 +423,59 @@ long long grid_for(long long work, int threads, int per_sm) {
   return blocks < cap ? blocks : cap;
 }
 
+int smem_optin() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// gf_bitxor_kernel<kStage, kBatch, kIn, kWalk, kSlice> in blocks of
+// `threads` with `smem` bytes of shared memory.
+template <bool kStage, int kBatch = kBitxorBatch, bool kIn = true,
+          bool kWalk = true, bool kSlice = true>
+cudaError_t launch_bitxor(const void* x, void* y, const void* ptr,
+                          const void* idx, int r, int c, int n_quads,
+                          long long groups, int threads, size_t smem,
+                          cudaStream_t stream) {
+  auto* kernel = gf_bitxor_kernel<kStage, kBatch, kIn, kWalk, kSlice>;
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = grid_for(groups, threads, 32);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y),
+      static_cast<const int*>(ptr), static_cast<const int4*>(idx), r, c,
+      n_quads, groups);
+  return cudaGetLastError();
+}
+
+// gf_sched_xor_kernel<kBatch, kThreads, kMinBlocks, kStream, XorIn> at
+// most per_sm blocks per SM.
+template <int kBatch, int kThreads, int kMinBlocks = 1, bool kStream = false,
+          class XorIn = MaskedXor>
+cudaError_t launch_sched(const void* x, void* y, const void* ptr,
+                         const void* entries, int rows, int n_entries, int w,
+                         long long lanes, int per_sm, cudaStream_t stream) {
+  const int n_blocks = (rows + kSchedRows - 1) / kSchedRows;
+  const size_t smem = static_cast<size_t>(n_entries) * sizeof(int4) +
+                      static_cast<size_t>(n_blocks + 1) * sizeof(int);
+  const bool stage = smem <= kSmemDefault;
+  const long long cols = lanes / w;
+  const long long blocks = grid_for(cols, kThreads, per_sm);
+  gf_sched_xor_kernel<kBatch, kThreads, kMinBlocks, kStream, XorIn>
+      <<<static_cast<unsigned>(blocks), kThreads, stage ? smem : 0, stream>>>(
+          static_cast<const uint4*>(x), static_cast<uint4*>(y),
+          static_cast<const int*>(ptr), static_cast<const int4*>(entries),
+          rows, n_entries, w, stage, lanes, cols);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -278,7 +489,7 @@ int gf_bitterm(const void* x, void* y, const void* coef, const void* tab,
   if (n4 == 0) return cudaSuccess;
   const long long groups = n4 / 4;
   const size_t smem = static_cast<size_t>(r) * c * (sizeof(uint2) + 1);
-  if (smem > 48 * 1024) {
+  if (smem > kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(
         gf_bitterm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -293,49 +504,52 @@ int gf_bitterm(const void* x, void* y, const void* coef, const void* tab,
   return cudaGetLastError();
 }
 
-// K2.  x: (c, n4) uint32, y: (r, n4) uint32, prog: (n_prog, 4) int32 program
-// over n_slots slots; threads * n_slots * 4 bytes of shared memory.
-int gf_bitxor(const void* x, void* y, const void* prog, int n_prog,
-              int n_slots, long long n4, int threads, void* stream) {
-  if (n_prog < 0 || n_slots < 0 || n4 < 0 || threads <= 0 || threads > 1024)
+// K2.  x: (c, n4) uint32, y: (r, n4) uint32; ptr: (8r + 1) int32 quad
+// offsets and idx: (n_quads, 4) int32 plane numbers, the plan of
+// ec_kernels.bitxor_plan.  n4 % 8 == 0, pointers 16-byte aligned (the
+// wrapper checks).  Block size: the largest of 256..32 threads whose
+// (8c + 1) planes fit 40 KiB, else 32 threads with the planes in what a
+// block may opt in to; the plan is staged beside the planes when the two fit
+// 48 KiB.
+int gf_bitxor(const void* x, void* y, const void* ptr, const void* idx,
+              int r, int c, int n_quads, long long n4, void* stream) {
+  if (r <= 0 || c <= 0 || n_quads < 0 || n4 < 0 || n4 % 8)
     return cudaErrorInvalidValue;
   if (n4 == 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(n_slots) * threads * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf_bitxor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  const size_t per_thread = static_cast<size_t>(8 * c + 1) * sizeof(uint32_t);
+  int threads = 32;
+  for (int t = 256; t > 32; t >>= 1) {
+    if (per_thread * t <= 40 * 1024) {
+      threads = t;
+      break;
+    }
   }
-  const long long blocks = grid_for(n4, threads, 32);
-  gf_bitxor_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const int4*>(prog), n_prog, n4);
-  return cudaGetLastError();
+  const size_t planes = per_thread * threads;
+  if (planes > static_cast<size_t>(smem_optin())) return cudaErrorInvalidValue;
+  const size_t plan = static_cast<size_t>(n_quads) * sizeof(int4) +
+                      static_cast<size_t>(8 * r + 1) * sizeof(int);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (planes + plan <= kSmemDefault)
+    return launch_bitxor<true>(x, y, ptr, idx, r, c, n_quads, n4 / 8, threads,
+                               planes + plan, s);
+  return launch_bitxor<false>(x, y, ptr, idx, r, c, n_quads, n4 / 8, threads,
+                              planes, s);
 }
 
-// K3.  x: (C, n4) uint32, y: (rows, n4) uint32; ptr: (ceil(rows / 16) + 1)
-// int32 and entries: (n_entries, 2) int32 (column, row mask), the plan of
-// ec_kernels.sched_xor_plan.  n4 % 4 == 0, pointers 16-byte aligned (the
-// wrapper checks).
+// K3.  x: (C / w, n4) uint32 chunks, y: (rows / w, n4) uint32; ptr:
+// (ceil(rows / 16) + 1) int32 and entries: (n_entries, 4) int32 (chunk,
+// packet, row mask, 0), the plan of ec_kernels.sched_xor_plan for packet
+// count w (w = 1: plane rows).  n4 % 4 == 0 and, for w > 1, n4 % (16 w)
+// == 0; pointers 16-byte aligned (the wrapper checks).
 int gf_sched_xor(const void* x, void* y, const void* ptr, const void* entries,
-                 int rows, int n_entries, long long n4, void* stream) {
-  if (rows < 0 || n_entries < 0 || n4 < 0 || n4 % 4)
+                 int rows, int n_entries, int w, long long n4, void* stream) {
+  if (rows < 0 || n_entries < 0 || w <= 0 || n4 < 0 || n4 % 4 ||
+      (w > 1 && n4 % (16LL * w)) || rows % w)
     return cudaErrorInvalidValue;
   if (n4 == 0 || rows == 0) return cudaSuccess;
-  const long long groups = n4 / 4;
-  const int n_blocks = (rows + kSchedRows - 1) / kSchedRows;
-  const size_t smem = static_cast<size_t>(n_entries) * sizeof(int2) +
-                      static_cast<size_t>(n_blocks + 1) * sizeof(int);
-  const bool stage = smem <= 48 * 1024;
-  const long long blocks = grid_for(groups, kSchedThreads, 8);
-  gf_sched_xor_kernel<<<static_cast<unsigned>(blocks), kSchedThreads,
-                        stage ? smem : 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y),
-      static_cast<const int*>(ptr), static_cast<const int2*>(entries), rows,
-      n_entries, stage, groups);
-  return cudaGetLastError();
+  return launch_sched<kSchedBatch, kSchedThreads>(
+      x, y, ptr, entries, rows, n_entries, w, n4 / 4, kSchedPerSm,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Largest dynamic shared memory a block may opt in to on the current device.

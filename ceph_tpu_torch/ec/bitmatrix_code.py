@@ -14,18 +14,23 @@ any granule-aligned sub-range encodes identically to the same bytes
 inside a larger call.
 
 Backends: ``numpy`` is the host path (the oracle); ``torch`` runs the
-packet rows through ops/ec_kernels.ScheduledXor on the profile's
-``device`` (default ``cuda``), which on the card launches the CUDA kernel
-gf_sched_xor.  The chunks go to the device in one copy and are permuted
-there into (n*w, G*S) plane rows; the result is permuted back and copied
-to the host once.  Applies below DEVICE_APPLY_MIN_BYTES stay on the host
-and are counted in ``host_applies``.
+chunks through ops/ec_kernels.ScheduledXor in packet mode on the
+profile's ``device`` (default ``cuda``), which on the card launches the
+CUDA kernel gf_sched_xor.  The chunks go to the device in one copy, the
+kernel reads and writes the packet rows where they lie in the (n, L)
+chunks, and the result comes back to the host in one copy.  Applies below
+DEVICE_APPLY_MIN_BYTES stay on the host and are counted in
+``host_applies``.
 
-A deliberate difference from the JAX package: the JAX codec catches any
-exception of the device apply, latches the device path off
-(``_xor_device_broken``) and carries on on the host.  This port has no
-such fall-through: on the torch backend an apply at or above the size
-rule runs on the device or raises.
+Two deliberate differences from the JAX package:
+
+- The JAX codec catches any exception of the device apply, latches the
+  device path off (``_xor_device_broken``) and carries on on the host.
+  This port has no such fall-through: on the torch backend an apply at or
+  above the size rule runs on the device or raises.
+- The JAX codec transposes the chunks into packet rows on the host and
+  back; this port hands the chunks over as they are (the same bytes: XOR
+  is positionwise).
 """
 
 from __future__ import annotations
@@ -255,7 +260,7 @@ class BitMatrixErasureCode(ErasureCode):
             if op is not None:
                 self._xor_ops[key] = op  # LRU touch
                 return op
-        op = ScheduledXor(B, device=self.device)
+        op = ScheduledXor(B, device=self.device, w=self.w)
         with self._xor_lock:
             hit = self._xor_ops.pop(key, None)
             if hit is not None:
@@ -268,24 +273,17 @@ class BitMatrixErasureCode(ErasureCode):
     def _apply_bits_device(self, B: np.ndarray,
                            chunks: np.ndarray) -> np.ndarray:
         """torch-backend apply: (n, L) chunks -> (R / w, L).  One
-        host->device copy; on the device the granule-local packet rows
-        are permuted into (n*w, G*S) plane rows (XOR is positionwise, so
-        the re-layout is exact), ONE scheduled-XOR launch produces every
-        output packet row, and the inverse permute gives the chunks back
-        for one device->host copy.  The copy in, the permutes and the
-        launch are booked in the kernel profiler under ``bitxor/RxC/L...``
-        (the first launch of a shape as "compile", then "device"), the
-        copy back as "sync"."""
-        n, L = chunks.shape
-        g, w, s = self._granules(L), self.w, SIMD_ALIGN
-        n_out = B.shape[0] // w
+        host->device copy, ONE scheduled-XOR launch in packet mode that
+        reads the granule-local packet rows where they lie and writes
+        every output chunk, and one device->host copy.  The copy in and
+        the launch are booked in the kernel profiler under
+        ``bitxor/RxC/L...`` (the first launch of a shape as "compile",
+        then "device"), the copy back as "sync"."""
+        g = self._granules(chunks.shape[1])
         op = self._xor_kernel(B)
-        sig = f"bitxor/{B.shape[0]}x{B.shape[1]}/L{g * s}"
+        sig = f"bitxor/{B.shape[0]}x{B.shape[1]}/L{g * SIMD_ALIGN}"
         t0 = time.perf_counter()
-        x = torch.from_numpy(chunks).to(self.device)
-        planes = x.view(n, g, w, s).permute(0, 2, 1, 3).reshape(n * w, g * s)
-        out = op(planes).reshape(n_out, w, g, s).permute(0, 2, 1, 3) \
-            .reshape(n_out, L)
+        out = op(torch.from_numpy(chunks).to(self.device))
         if out.device.type == "cuda":
             torch.cuda.synchronize(out.device)
         dt = time.perf_counter() - t0

@@ -42,8 +42,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "gf_bitterm": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
-    "gf_bitxor": (_I, [_P, _P, _P, _I, _I, _LL, _I, _P]),
-    "gf_sched_xor": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
+    "gf_bitxor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
+    "gf_sched_xor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
     "gf_smem_optin": (_I, [ctypes.POINTER(_I)]),
     "gf_error_string": (ctypes.c_char_p, [_I]),
 }

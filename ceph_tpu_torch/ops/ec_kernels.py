@@ -24,10 +24,11 @@ Kernel realizations (the names of the ``kernel=`` profile key, KERNELS):
   runs hand-written kernels only.
 - ``pallas`` — the bit-term CUDA kernel ``gf_bitterm`` (wrapper
   gf_bitterm_lanes); its plain version on a CPU tensor.
-- ``bitxor`` — the scheduled-XOR CUDA kernel ``gf_bitxor`` (wrapper
-  gf_bitxor_lanes): the CSE'd XOR program over GF(2) bit-planes built by
-  ops/xor_schedule, lowered here into a flat instruction program that the
-  kernel interprets; its plain version (gf_bitxor_graph) on a CPU tensor.
+- ``bitxor`` — the bit-sliced CUDA kernel ``gf_bitxor`` (wrapper
+  gf_bitxor_lanes): the product over GF(2) bit-planes, transposed in
+  registers, with the rows of gf256.bitmatrix(M) as a CSR (bitxor_plan);
+  its plain version (gf_bitxor_graph) runs the CSE'd XOR schedule of
+  ops/xor_schedule on a CPU tensor, as the JAX body does.
 - ``mxu``    — the bit-matrix GEMM of the JAX package; not ported yet, so
   ``kernel_supports`` answers False for it.
 
@@ -35,7 +36,8 @@ ScheduledXor is the third op: B @ rows over GF(2) for the bit-matrix
 codes, whose packet rows are planes already.  It launches the CUDA kernel
 ``gf_sched_xor`` (wrapper gf_sched_xor_lanes) over B lowered by
 sched_xor_plan; its plain version runs B's CSE'd XOR schedule, as the
-JAX body does.
+JAX body does.  In packet mode it takes the codec's (n, L) chunks as they
+are and the kernel finds the packet rows by address.
 
 Plain versions work on ``int32`` views of the lanes: CPU torch has no
 shifts on ``uint32``.  An arithmetic right shift by s <= 7 followed by the
@@ -51,7 +53,6 @@ Launches are counted in LAUNCHES (``gf_bitterm``, ``gf_bitxor``,
 from __future__ import annotations
 
 import functools
-import heapq
 import threading
 from dataclasses import dataclass
 
@@ -99,8 +100,8 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     - ``xla`` is the plain version, viable only on the CPU;
     - on the CPU ``pallas`` and ``bitxor`` run their plain versions;
     - on the card ``pallas`` needs its (r, c, 9)-byte coefficient table
-      to fit a block's shared memory, and ``bitxor`` needs the live set
-      of its lowered schedule to fit even a 32-thread block.
+      to fit a block's shared memory, and ``bitxor`` needs the (8c + 1)
+      bit-planes of a BITXOR_MIN_THREADS-thread block to fit it.
     """
     if kernel not in KERNELS or kernel == "mxu":
         return False
@@ -118,7 +119,7 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     smem = cuda_lib.smem_optin(device)
     if kernel == "pallas":
         return M.shape[0] * M.shape[1] * 9 <= smem
-    return bitxor_threads(bitxor_program(M).n_slots, smem) is not None
+    return (8 * M.shape[1] + 1) * 4 * BITXOR_MIN_THREADS <= smem
 
 
 def _terms(M: np.ndarray) -> tuple[tuple[tuple[int, int, int], ...], ...]:
@@ -286,185 +287,87 @@ def _bitxor_rows(x32, sched: XorSchedule):
     return torch.stack(rows)
 
 
-# program opcodes of the gf_bitxor kernel (csrc/gf_region.cu)
-OP_LOAD, OP_XOR, OP_INIT, OP_ACC, OP_STORE, OP_ZERO = range(6)
+#: gf_bitxor's smallest block (csrc/gf_region.cu falls back to it); its
+#: (8c + 1) planes of 4 bytes a thread must fit a block's shared memory
+BITXOR_MIN_THREADS = 32
 
 
 @dataclass(frozen=True)
-class BitxorProgram:
-    """An XorSchedule lowered for the gf_bitxor kernel: ``code`` is an
-    (n, 4) int32 array of (opcode, a, b, c) instructions over
-    ``n_slots`` node slots; ``rows`` output byte rows.
+class BitxorPlan:
+    """A GF(2^8) matrix M (r, c) lowered for the gf_bitxor kernel: the rows
+    of B = gf256.bitmatrix(M) (8r x 8c) as a CSR over bit-planes.
 
-    - LOAD  a, j, s: slot a = (x[j] >> s) & 0x01010101
-    - XOR   a, b, c: slot a = slot b ^ slot c
-    - INIT  a, b, t: slot a = slot b << t    (first term of a row)
-    - ACC   a, b, t: slot a ^= slot b << t
-    - STORE i, b:    output row i = slot b
-    - ZERO  i:       output row i = 0
-    """
+    The bit order is the kernel's transpose (``bitslice`` in
+    csrc/gf_region.cu).  A thread takes the 32-byte column group made of
+    the 16 bytes at uint4 lane g of a row and the 16 at lane g + n4 / 8,
+    as 8 words (word k = bytes 4k..4k+3).  After the transpose, word s
+    holds bit s of byte 4k + b at bit 8b + k: plane 8j + s of input row j,
+    the column of B it multiplies.  Output plane 8i + t is bit t of output
+    row i in the same order, so the kernel transposes it back with the same
+    function.
 
-    code: np.ndarray
-    n_slots: int
+    Output plane q is the XOR of the planes ``idx[ptr[q]:ptr[q + 1]]``:
+    ``ptr`` is (8r + 1,) int32 in quads, ``idx`` (n_quads, 4) int32 plane
+    numbers, each row of B padded to whole quads with plane 8c, which the
+    kernel keeps zero."""
+
+    ptr: np.ndarray
+    idx: np.ndarray
     rows: int
-
-
-def lower_schedule(sched: XorSchedule) -> BitxorProgram:
-    """Lower ``sched`` into a BitxorProgram whose node slots are
-    allocated by liveness: the working set is the most nodes live at
-    once, not the node count.
-
-    Order: the schedule's ops in order, each operand input plane loaded
-    just before its first use; every node's output terms are folded into
-    their row accumulators right after the node is made (shift
-    distributes over XOR, so out_row ^= node << t term by term), and a
-    row is stored right after its last term.  Planes read only by
-    outputs load last, in plane order, so planes of one input row sit
-    together (the kernel keeps the last row it read in a register)."""
-    n_in = sched.n_in
-    n_rows = len(sched.outputs) // 8
-    node_terms: dict[int, list[tuple[int, int]]] = {}
-    row_terms = [0] * n_rows
-    for q, terms in enumerate(sched.outputs):
-        for node in terms:
-            node_terms.setdefault(node, []).append((q >> 3, q & 7))
-            row_terms[q >> 3] += 1
-
-    events: list[tuple] = []
-    loaded: set[int] = set()
-
-    def define(ev: tuple, node: int) -> None:
-        events.append(ev)
-        for row, t in node_terms.get(node, ()):
-            events.append(("acc", row, node, t))
-
-    for dst, a, b in sched.ops:
-        for p in (a, b):
-            if p < n_in and p not in loaded:
-                loaded.add(p)
-                define(("load", p), p)
-        define(("xor", dst, a, b), dst)
-    for p in sched.used_inputs:
-        if p not in loaded:
-            loaded.add(p)
-            define(("load", p), p)
-
-    last_use: dict[int, int] = {}
-    for idx, ev in enumerate(events):
-        if ev[0] == "xor":
-            last_use[ev[2]] = idx
-            last_use[ev[3]] = idx
-        elif ev[0] == "acc":
-            last_use[ev[2]] = idx
-
-    free: list[int] = []
-    n_slots = 0
-
-    def alloc() -> int:
-        nonlocal n_slots
-        if free:
-            return heapq.heappop(free)
-        n_slots += 1
-        return n_slots - 1
-
-    slot: dict[int, int] = {}
-    acc_slot: dict[int, int] = {}
-    acc_left = list(row_terms)
-    code: list[tuple[int, int, int, int]] = []
-
-    def release(node: int, idx: int) -> None:
-        if last_use.get(node, -1) <= idx and node in slot:
-            heapq.heappush(free, slot.pop(node))
-
-    for idx, ev in enumerate(events):
-        kind = ev[0]
-        if kind == "load":
-            p = ev[1]
-            slot[p] = alloc()
-            code.append((OP_LOAD, slot[p], p >> 3, p & 7))
-            release(p, idx)  # a plane nothing reads (never, in practice)
-        elif kind == "xor":
-            _, dst, a, b = ev
-            sa, sb = slot[a], slot[b]
-            release(a, idx)
-            release(b, idx)
-            slot[dst] = alloc()
-            code.append((OP_XOR, slot[dst], sa, sb))
-            release(dst, idx)
-        else:
-            _, row, node, t = ev
-            src = slot[node]
-            release(node, idx)
-            if row not in acc_slot:
-                acc_slot[row] = alloc()
-                code.append((OP_INIT, acc_slot[row], src, t))
-            else:
-                code.append((OP_ACC, acc_slot[row], src, t))
-            acc_left[row] -= 1
-            if acc_left[row] == 0:
-                code.append((OP_STORE, row, acc_slot[row], 0))
-                heapq.heappush(free, acc_slot.pop(row))
-    for row in range(n_rows):
-        if row_terms[row] == 0:
-            code.append((OP_ZERO, row, 0, 0))
-    arr = np.array(code, dtype=np.int32).reshape(-1, 4)
-    return BitxorProgram(code=arr, n_slots=n_slots, rows=n_rows)
+    cols: int
 
 
 @functools.lru_cache(maxsize=128)
-def _cached_program(key: bytes, shape: tuple[int, int]) -> BitxorProgram:
+def _cached_plan(key: bytes, shape: tuple[int, int]) -> BitxorPlan:
     M = np.frombuffer(key, dtype=np.uint8).reshape(shape)
-    return lower_schedule(bitxor_schedule(M))
+    B = gf256.bitmatrix(M)
+    r, c = shape
+    ptr = [0]
+    quads: list[int] = []
+    for q in range(8 * r):
+        ones = np.nonzero(B[q])[0].tolist()
+        quads += ones + [8 * c] * (-len(ones) % 4)
+        ptr.append(len(quads) // 4)
+    return BitxorPlan(ptr=np.array(ptr, dtype=np.int32),
+                      idx=np.array(quads, dtype=np.int32).reshape(-1, 4),
+                      rows=r, cols=c)
 
 
-def bitxor_program(M: np.ndarray) -> BitxorProgram:
-    """The lowered bitxor program of matrix ``M``, cached per matrix."""
+def bitxor_plan(M: np.ndarray) -> BitxorPlan:
+    """The gf_bitxor plan of matrix ``M``, cached per matrix."""
     M = np.ascontiguousarray(M, dtype=np.uint8)
-    return _cached_program(M.tobytes(), M.shape)
+    return _cached_plan(M.tobytes(), M.shape)
 
 
-#: gf_bitxor block sizes, largest first
-_BITXOR_THREADS = (256, 128, 64, 32)
-
-
-def bitxor_threads(n_slots: int, smem_optin: int) -> int | None:
-    """Block size for a program of ``n_slots`` slots: the largest whose
-    [slot][thread] array fits the default 48 KiB of shared memory, else
-    the largest that fits what a block may opt in to, else None (the
-    schedule's live set does not fit even a 32-thread block)."""
-    for limit in (48 * 1024, smem_optin):
-        for t in _BITXOR_THREADS:
-            if max(n_slots, 1) * t * 4 <= limit:
-                return t
-    return None
-
-
-def gf_bitxor_lanes(x32: torch.Tensor, sched: XorSchedule, program=None
+def gf_bitxor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None
                     ) -> torch.Tensor:
     """K2 wrapper: (c, n4) 32-bit lanes -> (r, n4) int32 lanes.
 
     On a CPU tensor it runs the plain version of ``sched``.  On a CUDA
-    tensor it launches ``gf_bitxor`` with ``program`` = (code tensor
-    (n, 4) int32 on the same device, BitxorProgram, threads)."""
+    tensor it launches ``gf_bitxor`` with ``plan`` = (ptr tensor, idx
+    tensor, BitxorPlan), the tensors on the same device, and needs
+    n4 % 8 == 0 and 16-byte alignment."""
     if x32.device.type == "cpu":
         return _bitxor_rows(x32.view(torch.int32), sched)
     if x32.device.type != "cuda":
         raise ValueError(f"gf_bitxor: unsupported device {x32.device}")
-    if program is None:
-        raise ValueError("gf_bitxor: a CUDA tensor needs the device program")
-    code, prog, threads = program
-    _check_lanes(x32, sched.n_in // 8, "gf_bitxor")
+    if plan is None:
+        raise ValueError("gf_bitxor: a CUDA tensor needs the device plan")
+    ptr, idx, p = plan
+    _check_lanes(x32, p.cols, "gf_bitxor")
     n4 = x32.shape[1]
-    if not x32.is_contiguous() or code.device != x32.device:
-        raise ValueError("gf_bitxor: want contiguous lanes and the "
-                         "program on the same device")
+    if (not x32.is_contiguous() or n4 % 8 or x32.data_ptr() % 16
+            or ptr.device != x32.device or idx.device != x32.device):
+        raise ValueError("gf_bitxor: want contiguous, 16-byte aligned "
+                         "lanes with n4 % 8 == 0 and the plan on the "
+                         "same device")
     from . import cuda_lib
-    y32 = torch.empty((prog.rows, n4), dtype=torch.int32, device=x32.device)
+    y32 = torch.empty((p.rows, n4), dtype=torch.int32, device=x32.device)
     with torch.cuda.device(x32.device):
         stream = torch.cuda.current_stream(x32.device).cuda_stream
         err = cuda_lib.lib().gf_bitxor(
-            x32.data_ptr(), y32.data_ptr(), code.data_ptr(),
-            int(code.shape[0]), prog.n_slots, n4, threads, stream)
+            x32.data_ptr(), y32.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
+            p.rows, p.cols, int(idx.shape[0]), n4, stream)
     cuda_lib.check(err, "gf_bitxor launch")
     _count("gf_bitxor")
     return y32
@@ -559,86 +462,128 @@ def _sched_plane_rows(x32, sched: XorSchedule):
 #: must match kSchedRows in csrc/gf_region.cu
 SCHED_ROW_BLOCK = 16
 
+#: bytes of a packet of the bit-matrix codes (ec/interface.SIMD_ALIGN);
+#: must match kPacketLanes * 16 in csrc/gf_region.cu
+PACKET_BYTES = 64
+
+def _sched_packet_rows(x32, sched: XorSchedule, w: int):
+    """Plain version of K3 in packet mode: (n, n4) int32 chunk lanes ->
+    (R / w, n4).  A chunk is granules of w packets of PACKET_BYTES; the
+    chunks' packet rows are permuted into (n * w, G * PACKET_BYTES / 4)
+    plane rows, the schedule runs on them, and the result is permuted
+    back; the kernel reads and writes the same packet rows in place."""
+    n, n4 = x32.shape
+    q = PACKET_BYTES // 4
+    if n4 % (w * q):
+        raise ValueError(f"packet mode wants whole {w * PACKET_BYTES}-byte "
+                         f"granules, got {4 * n4} bytes a row")
+    g = n4 // (w * q)
+    planes = x32.reshape(n, g, w, q).permute(0, 2, 1, 3).reshape(n * w, -1)
+    out = _sched_plane_rows(planes, sched)
+    return out.reshape(-1, w, g, q).permute(0, 2, 1, 3).reshape(-1, n4)
+
 
 @dataclass(frozen=True)
 class SchedXorPlan:
-    """A GF(2) matrix B (rows, cols) lowered for the gf_sched_xor kernel.
+    """A GF(2) matrix B (rows, cols) lowered for the gf_sched_xor kernel,
+    whose rows and columns are packet rows j * w + p: packet p of chunk j
+    (w = 1: plane rows, chunk j is row j).
 
     Output rows go in blocks of SCHED_ROW_BLOCK.  Block b's entries are
-    ``entries[ptr[b]:ptr[b + 1]]``, one (input row, mask) pair for every
-    input row that feeds a row of the block, in input-row order: bit i of
-    the mask is B[b * SCHED_ROW_BLOCK + i, input row].  ``ptr`` is
-    (n_blocks + 1,) int32 and ``entries`` (n, 2) int32."""
+    ``entries[ptr[b]:ptr[b + 1]]``, one (chunk, packet, mask, 0) quad for
+    every input row that feeds a row of the block, in input-row order: bit
+    i of the mask is B[b * SCHED_ROW_BLOCK + i, input row].  ``ptr`` is
+    (n_blocks + 1,) int32 and ``entries`` (n, 4) int32."""
 
     ptr: np.ndarray
     entries: np.ndarray
     rows: int
     cols: int
+    w: int
 
 
-def sched_xor_plan(B: np.ndarray) -> SchedXorPlan:
-    """Lower GF(2) matrix ``B`` into a SchedXorPlan."""
+def sched_xor_plan(B: np.ndarray, w: int = 1) -> SchedXorPlan:
+    """Lower GF(2) matrix ``B`` into a SchedXorPlan for ``w`` packets a
+    granule; B's shape must be a multiple of w."""
     B = np.ascontiguousarray(B, dtype=np.uint8) & 1
     rows, cols = B.shape
+    if rows % w or cols % w:
+        raise ValueError(f"a {rows}x{cols} matrix is not whole chunks of "
+                         f"{w} packets")
     ptr = [0]
-    entries: list[tuple[int, int]] = []
+    entries: list[tuple[int, int, int, int]] = []
     for r0 in range(0, rows, SCHED_ROW_BLOCK):
         blk = B[r0:r0 + SCHED_ROW_BLOCK].astype(np.int64)
         masks = (blk << np.arange(blk.shape[0])[:, None]).sum(axis=0)
-        entries += [(int(c), int(masks[c])) for c in np.nonzero(masks)[0]]
+        entries += [(int(c) // w, int(c) % w, int(masks[c]), 0)
+                    for c in np.nonzero(masks)[0]]
         ptr.append(len(entries))
     return SchedXorPlan(ptr=np.array(ptr, dtype=np.int32),
                         entries=np.array(entries, dtype=np.int32)
-                        .reshape(-1, 2), rows=rows, cols=cols)
+                        .reshape(-1, 4), rows=rows, cols=cols, w=w)
 
 
-def gf_sched_xor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None
-                       ) -> torch.Tensor:
-    """K3 wrapper: (C, n4) 32-bit plane rows -> (R, n4) int32 lanes.
+def gf_sched_xor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None,
+                       *, w: int = 1) -> torch.Tensor:
+    """K3 wrapper: (C / w, n4) 32-bit lanes -> (R / w, n4) int32 lanes,
+    where w = 1 takes plane rows and w > 1 chunks of granules of w
+    packets (n4 % (w * PACKET_BYTES / 4) == 0).
 
     On a CPU tensor it runs the plain version of ``sched``.  On a CUDA
     tensor it launches ``gf_sched_xor`` with ``plan`` = (ptr tensor,
-    entries tensor, SchedXorPlan), the tensors on the same device, and
-    needs n4 % 4 == 0 and 16-byte alignment."""
+    entries tensor, SchedXorPlan for w), the tensors on the same device,
+    and needs n4 % 4 == 0 and 16-byte alignment."""
     if x32.device.type == "cpu":
-        return _sched_plane_rows(x32.view(torch.int32), sched)
+        x32 = x32.view(torch.int32)
+        if w == 1:
+            return _sched_plane_rows(x32, sched)
+        return _sched_packet_rows(x32, sched, w)
     if x32.device.type != "cuda":
         raise ValueError(f"gf_sched_xor: unsupported device {x32.device}")
     if plan is None:
         raise ValueError("gf_sched_xor: a CUDA tensor needs the device plan")
     ptr, entries, p = plan
-    _check_lanes(x32, p.cols, "gf_sched_xor")
+    if p.w != w:
+        raise ValueError(f"gf_sched_xor: a plan for w={p.w}, not w={w}")
+    _check_lanes(x32, p.cols // w, "gf_sched_xor")
     n4 = x32.shape[1]
-    if (not x32.is_contiguous() or n4 % 4 or x32.data_ptr() % 16
+    quantum = 4 if w == 1 else w * PACKET_BYTES // 4
+    if (not x32.is_contiguous() or n4 % quantum or x32.data_ptr() % 16
             or ptr.device != x32.device or entries.device != x32.device):
-        raise ValueError("gf_sched_xor: want contiguous, 16-byte aligned "
-                         "lanes with n4 % 4 == 0 and the plan on the "
-                         "same device")
+        raise ValueError(f"gf_sched_xor: want contiguous, 16-byte aligned "
+                         f"lanes with n4 % {quantum} == 0 and the plan on "
+                         f"the same device")
     from . import cuda_lib
-    y32 = torch.empty((p.rows, n4), dtype=torch.int32, device=x32.device)
+    y32 = torch.empty((p.rows // w, n4), dtype=torch.int32,
+                      device=x32.device)
     with torch.cuda.device(x32.device):
         stream = torch.cuda.current_stream(x32.device).cuda_stream
         err = cuda_lib.lib().gf_sched_xor(
             x32.data_ptr(), y32.data_ptr(), ptr.data_ptr(),
-            entries.data_ptr(), p.rows, int(entries.shape[0]), n4, stream)
+            entries.data_ptr(), p.rows, int(entries.shape[0]), w, n4,
+            stream)
     cuda_lib.check(err, "gf_sched_xor launch")
     _count("gf_sched_xor")
     return y32
 
 
-def gf_sched_xor_graph(B: np.ndarray):
-    """fn(rows (C, L) uint8 tensor) -> (R, L) uint8 computing B @ rows
-    over GF(2) by B's XOR schedule (L % 4 == 0); the plain version of
-    K3, on any device."""
+def gf_sched_xor_graph(B: np.ndarray, w: int = 1):
+    """fn(rows (C / w, L) uint8 tensor) -> (R / w, L) uint8 computing
+    B @ rows over GF(2) by B's XOR schedule (L % 4 == 0; for w > 1 chunks
+    of whole granules, as in ScheduledXor's packet mode); the plain version
+    of K3, on any device."""
     B = np.ascontiguousarray(B, dtype=np.uint8) & 1
     sched = _cached_schedule(B.tobytes(), B.shape)
+    R, C = B.shape
 
     def fn(rows_u8):
-        if rows_u8.shape[0] != B.shape[1]:
-            raise ValueError(f"expected {B.shape[1]} rows, got "
+        if rows_u8.shape[0] * w != C:
+            raise ValueError(f"expected {C // w} rows, got "
                              f"{rows_u8.shape[0]}")
-        y32 = _sched_plane_rows(_lanes_view(rows_u8), sched)
-        return _bytes_view(y32).reshape(B.shape[0], -1)
+        x32 = _lanes_view(rows_u8)
+        y32 = (_sched_plane_rows(x32, sched) if w == 1
+               else _sched_packet_rows(x32, sched, w))
+        return _bytes_view(y32).reshape(R // w, -1)
 
     return fn
 
@@ -700,11 +645,8 @@ class _LaneOp:
                 f"n4 % {self.BLOCK} == 0; got {n4}")
         return self._lanes_op(self._on_device(x32))
 
-    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
-        """data (c, L) uint8 (numpy, or a tensor on the host or on this
-        op's device) -> (r, L) uint8 tensor on this op's device.
-        ``donate`` is accepted for the JAX package's signature and
-        ignored: the port does not alias inputs yet."""
+    def _bytes_in(self, data) -> torch.Tensor:
+        """``data`` as a (c, L) uint8 tensor (numpy is wrapped)."""
         if isinstance(data, np.ndarray):
             data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.uint8))
         if data.dtype != torch.uint8:
@@ -712,6 +654,14 @@ class _LaneOp:
         if data.ndim != 2 or data.shape[0] != self.c:
             raise ValueError(
                 f"expected ({self.c}, L) data, got {tuple(data.shape)}")
+        return data
+
+    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
+        """data (c, L) uint8 (numpy, or a tensor on the host or on this
+        op's device) -> (r, L) uint8 tensor on this op's device.
+        ``donate`` is accepted for the JAX package's signature and
+        ignored: the port does not alias inputs yet."""
+        data = self._bytes_in(data)
         L = data.shape[1]
         if L == 0:
             return torch.zeros((self.r, 0), dtype=torch.uint8,
@@ -735,8 +685,8 @@ class RegionMatmul(_LaneOp):
     independent), which is how a stripe batch is fed in one launch: a
     (c, batch*chunk) tensor.  PyTorch runs eagerly, so the JAX package's
     per-shape jit LRU has no counterpart; what is cached is the
-    matrix's device-resident coefficient table (K1) or lowered program
-    (K2), built at first launch behind ``_cache_lock``.
+    matrix's device-resident coefficient table (K1) or plan (K2), built
+    at first launch behind ``_cache_lock``.
     """
 
     def __init__(self, M: np.ndarray, *, kernel: str = "auto",
@@ -766,8 +716,8 @@ class RegionMatmul(_LaneOp):
         self._cache_lock = threading.Lock()
 
     def _device_state(self):
-        """K1's (coef, tab) or K2's (code, program, threads) on the
-        card, built at first use."""
+        """K1's (coef, tab) or K2's (ptr, idx, BitxorPlan) on the card,
+        built at first use."""
         with self._cache_lock:
             if self._dev_state is None:
                 dev = self.device
@@ -776,12 +726,10 @@ class RegionMatmul(_LaneOp):
                         torch.from_numpy(self.M.copy()).to(dev),
                         torch.from_numpy(bitterm_table(self.M)).to(dev))
                 else:
-                    from . import cuda_lib
-                    prog = bitxor_program(self.M)
-                    threads = bitxor_threads(prog.n_slots,
-                                             cuda_lib.smem_optin(dev))
-                    self._dev_state = (torch.from_numpy(prog.code).to(dev),
-                                       prog, threads)
+                    plan = bitxor_plan(self.M)
+                    self._dev_state = (torch.from_numpy(plan.ptr).to(dev),
+                                       torch.from_numpy(plan.idx).to(dev),
+                                       plan)
             return self._dev_state
 
     def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:
@@ -798,15 +746,25 @@ class RegionMatmul(_LaneOp):
 class ScheduledXor(_LaneOp):
     """out(R, L) = B(R, C) @ rows(C, L) over GF(2) on one device: the
     executor of the GF(2) bit-matrix code family (ec/bitmatrix_code.py
-    sends its packet rows here on the torch backend).  On the card it
-    launches gf_sched_xor (K3) over the plan of ``B``; on the CPU it runs
-    the plain version over ``self.sched``, the CSE'd XOR schedule of
-    ``B``.  Same 512-byte lane quantum as RegionMatmul."""
+    sends its chunks here on the torch backend).  On the card it launches
+    gf_sched_xor (K3) over the plan of ``B``; on the CPU it runs the plain
+    version over ``self.sched``, the CSE'd XOR schedule of ``B``.
 
-    def __init__(self, B: np.ndarray, *, device="cuda"):
+    ``w`` = 1 takes plane rows, with the same 512-byte lane quantum as
+    RegionMatmul.  ``w`` > 1 is packet mode: the op takes (C / w, L)
+    chunks made of granules of w packets of PACKET_BYTES, where B's row
+    and column j * w + p is packet p of chunk j, and gives (R / w, L)
+    chunks.  The kernel finds the packets by address, so nothing is
+    permuted or padded: L must be whole granules."""
+
+    def __init__(self, B: np.ndarray, *, device="cuda", w: int = 1):
         self.B = np.ascontiguousarray(B, dtype=np.uint8) & 1
         self.R, self.C = self.B.shape
-        self.r, self.c = self.R, self.C
+        if w < 1 or self.R % w or self.C % w:
+            raise ValueError(f"a {self.R}x{self.C} matrix is not whole "
+                             f"chunks of {w} packets")
+        self.w = w
+        self.r, self.c = self.R // w, self.C // w
         self.sched = _cached_schedule(self.B.tobytes(), self.B.shape)
         self._set_device(device)
         self._dev_state = None
@@ -816,7 +774,7 @@ class ScheduledXor(_LaneOp):
         """(ptr, entries, SchedXorPlan) on the card, built at first use."""
         with self._cache_lock:
             if self._dev_state is None:
-                plan = sched_xor_plan(self.B)
+                plan = sched_xor_plan(self.B, self.w)
                 self._dev_state = (
                     torch.from_numpy(plan.ptr).to(self.device),
                     torch.from_numpy(plan.entries).to(self.device), plan)
@@ -824,4 +782,21 @@ class ScheduledXor(_LaneOp):
 
     def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:
         state = None if x32.device.type == "cpu" else self._device_state()
-        return gf_sched_xor_lanes(x32, self.sched, state)
+        return gf_sched_xor_lanes(x32, self.sched, state, w=self.w)
+
+    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
+        if self.w == 1:
+            return super().__call__(data, donate=donate)
+        data = self._bytes_in(data)
+        L = data.shape[1]
+        if L % (self.w * PACKET_BYTES):
+            raise ValueError(f"packet mode wants whole "
+                             f"{self.w * PACKET_BYTES}-byte granules, got "
+                             f"L = {L}")
+        if L == 0:
+            return torch.zeros((self.r, 0), dtype=torch.uint8,
+                               device=self.device)
+        x = self._on_device(data)
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            x = x.clone(memory_format=torch.contiguous_format)
+        return self._lanes_op(x.view(torch.int32)).view(torch.uint8)

@@ -1,4 +1,4 @@
-"""XOR schedules for GF(2) bit-matrices — the bitxor kernel's front end.
+"""XOR schedules for GF(2) bit-matrices — the plain versions' XOR programs.
 
 A GF(2) bit-matrix applied to plane rows is pure XOR:
 
@@ -14,9 +14,9 @@ and memoized — classic common-subexpression elimination over the XOR
 chain, jerasure's "smart scheduling" generalized across rows.
 
 This module builds such schedules CPU-side at matrix-construction time
-(ops/ec_kernels.py lowers them into the flat instruction program
-the CUDA bitxor kernel interprets, and runs them as plain torch
-ops on the CPU) with the greedy pairwise-matching CSE: repeatedly
+(ops/ec_kernels.py runs them as plain torch ops: the plain versions of
+the bitxor and scheduled-XOR kernels, which the CUDA kernels are held
+to) with the greedy pairwise-matching CSE: repeatedly
 find the operand PAIR co-occurring in the most rows, hoist it into a
 fresh intermediate node, substitute, stop when no pair repeats.  The
 pair counts update incrementally and the max extraction rides a lazy

@@ -11,7 +11,9 @@ H100; the kernels are built for sm_90a).  Phases, one line each:
 2. build   — nvcc builds every kernel from ceph_tpu_torch/csrc/.
 3. kernels — each kernel against its plain version on the card
              (torch.equal) and against the numpy oracle, over the listed
-             matrices and lengths; CUDA-event times at the main shapes.
+             matrices and lengths, K3 in plane-row and in packet mode;
+             CUDA-event times at the main shapes, with K3's yardstick (a
+             device copy of the same bytes).
 4. slice   — the ``tpu`` plugin (reed_sol_van k=8, m=3) on the card:
              encode_batch / decode_batch of 64 x 1 MiB stripes and
              encode / decode through the interface, byte-exact.
@@ -235,7 +237,7 @@ def phase_build() -> None:
     say("build", f"{time.perf_counter() - t0:.2f} s "
                  f"({'nvcc ran' if built is not None else 'up to date'})")
     for ln in cuda_lib.BUILD_LOG.get("ptxas", "").splitlines():
-        if "registers" in ln or "Compiling entry" in ln:
+        if any(w in ln for w in ("registers", "Compiling entry", "spill")):
             say("build", ln.strip())
 
 
@@ -341,13 +343,82 @@ def sched_matrices(rng: np.random.Generator) -> dict[str, np.ndarray]:
     }
 
 
+#: the packet-mode cases: (label, technique, k, erased data shards or
+#: None for the encode drive); the codec's own matrices, m = 2
+PACKET_CASES = (("liberation k=5", "liberation", 5, None),
+                ("liberation decode {0,1}", "liberation", 5, (0, 1)),
+                ("blaum_roth k=4", "blaum_roth", 4, None),
+                ("liber8tion k=6", "liber8tion", 6, None),
+                ("liber8tion decode {0,1}", "liber8tion", 6, (0, 1)))
+PACKET_GRANULES = (1, 3, 37)
+
+
+def packet_matrix(technique: str, k: int, erased) -> tuple:
+    """(B, w, numpy-backend codec) of one packet-mode case."""
+    codec = bit_codec(technique, k, backend="numpy")
+    if erased is None:
+        return codec.bitmatrix, codec.w, codec
+    avail = tuple(i for i in range(k + 2) if i not in erased)
+    return codec._decode_combo(tuple(erased), avail), codec.w, codec
+
+
+def oracle_granules(G: int, windows: int = 64) -> np.ndarray:
+    """Granules of a chunk held against the numpy codec: all of them up
+    to ``windows``, else ``windows`` spread evenly and the last one."""
+    if G <= windows:
+        return np.arange(G)
+    return np.unique(np.append(np.arange(windows) * G // windows, G - 1))
+
+
+def check_packet_mode(dev: torch.device, gen: torch.Generator,
+                      size: int) -> tuple[int, int]:
+    """K3 in packet mode against its plain version (permute, schedule,
+    permute back; equal bytes, all columns) and the numpy codec's host
+    apply (oracle_granules) on every PACKET_CASES matrix at
+    PACKET_GRANULES granules and at the chunk length of a ``size``
+    object.  Returns (cases, max abs error)."""
+    err = cases = 0
+    for label, technique, k, erased in PACKET_CASES:
+        B, w, codec = packet_matrix(technique, k, erased)
+        op = ec_kernels.ScheduledXor(B, device=dev, w=w)
+        plain = ec_kernels.gf_sched_xor_graph(B, w)
+        granule = w * 64
+        for G in PACKET_GRANULES + (codec.get_chunk_size(size) // granule,):
+            chunks = torch.randint(0, 256, (op.c, G * granule),
+                                   dtype=torch.uint8, device=dev,
+                                   generator=gen)
+            got = op(chunks)
+            want = plain(chunks)
+            torch.cuda.synchronize(dev)
+            diff = int((got.int() - want.int()).abs().max())
+            err = max(err, diff)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{SCHED_KERNEL[0]} packet mode {label} G={G}: differs "
+                    f"from its plain version (max abs err {diff})")
+            gi = torch.from_numpy(oracle_granules(G)).to(dev)
+            cols = (gi[:, None] * granule + torch.arange(
+                granule, device=dev)[None, :]).reshape(-1)
+            oracle = codec._apply(B, chunks[:, cols].cpu().numpy())
+            if not np.array_equal(got[:, cols].cpu().numpy(), oracle):
+                raise AssertionError(f"{SCHED_KERNEL[0]} packet mode {label}"
+                                     f" G={G}: differs from the numpy codec")
+            cases += 1
+            del chunks, got, want
+    return cases, err
+
+
 def phase_sched_xor(dev: torch.device, rng: np.random.Generator,
-                    lengths=SCHED_LENGTHS, n_time: int = 30) -> dict:
+                    lengths=SCHED_LENGTHS, n_time: int = 30,
+                    size: int = 80 << 20) -> dict:
     """K3 against its plain version (equal bytes, all columns) and the
-    numpy oracle xor_schedule.naive_apply (oracle_columns); then
-    CUDA-event times of the liberation encode and the densest liber8tion
-    decode at the packet-row lengths of an 80 MiB object, and of the
-    codec's device permutes around the first."""
+    numpy oracle xor_schedule.naive_apply (oracle_columns) in plane-row
+    mode, and in packet mode against its plain version and the numpy
+    codec (check_packet_mode).  Then CUDA-event times at the two main
+    shapes, the liberation encode and the densest liber8tion decode of a
+    ``size`` object: plane rows at the padded packet-row length, packet
+    mode (the kernel, and one whole apply of the op as the codec calls
+    it) and a device copy of the same bytes."""
     name, _ctr, site = SCHED_KERNEL
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -376,52 +447,62 @@ def phase_sched_xor(dev: torch.device, rng: np.random.Generator,
                     f"{name} {label} L={L}: differs from the oracle")
             cases += 1
             del data, got, want
-    say("kernels", f"{name}: {cases} cases ({len(mats)} matrices x "
-                   f"{len(lengths)} lengths) equal to the plain version "
+    say("kernels", f"{name}: {cases} plane-row cases ({len(mats)} matrices "
+                   f"x {len(lengths)} lengths) equal to the plain version "
                    "and the oracle")
+    p_cases, p_err = check_packet_mode(dev, gen, size)
+    err = max(err, p_err)
+    say("kernels", f"{name}: {p_cases} packet-mode cases "
+                   f"({len(PACKET_CASES)} codec matrices x granules "
+                   f"{', '.join(map(str, PACKET_GRANULES))} and a "
+                   f"{size >> 20} MiB object) equal to the plain version "
+                   "and the numpy codec")
     row = None
-    size = 80 << 20
-    for label, technique, k in (
-            ("liberation k=5 14x35", "liberation", 5),
-            ("liber8tion decode {0,1} 16x48", "liber8tion", 6)):
-        B = mats[label]
-        op = ec_kernels.ScheduledXor(B, device=dev)
-        codec = bit_codec(technique, k, backend="numpy")
-        w = codec.w
-        Lrow = codec.get_chunk_size(size) // w
-        Lp = Lrow + (-Lrow) % op._quantum(Lrow)  # the width it launches
-        data = torch.randint(0, 256, (B.shape[1], Lp), dtype=torch.uint8,
-                             device=dev, generator=gen)
-        x32 = data.view(torch.int32)
-        ms = cuda_ms(lambda: op.encode_lanes(x32), n_time)
-        plain = ec_kernels.gf_sched_xor_graph(B)
-        plain_ms = cuda_ms(lambda: plain(data), max(5, n_time // 4), warm=1)
-        bound_ms, bound_by = bound(B, Lp, sched_bound_parts)
-        t_bytes, t_ops = sched_bound_parts(B, Lp)
+    for label, technique, k, erased in (PACKET_CASES[0], PACKET_CASES[4]):
+        B, w, codec = packet_matrix(technique, k, erased)
+        Lc = codec.get_chunk_size(size)
+        Lrow = Lc // w
+        packet = ec_kernels.ScheduledXor(B, device=dev, w=w)
+        chunks = torch.randint(0, 256, (packet.c, Lc), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        c32 = chunks.view(torch.int32)
+        state = packet._device_state()
+
+        ms = cuda_ms(lambda: ec_kernels.gf_sched_xor_lanes(
+            c32, packet.sched, state, w=w), n_time)
+        apply_ms = cuda_ms(lambda: packet(chunks), n_time)
+        plain = ec_kernels.gf_sched_xor_graph(B, w)
+        plain_ms = cuda_ms(lambda: plain(chunks), max(5, n_time // 4),
+                           warm=1)
+        rows = ec_kernels.ScheduledXor(B, device=dev)
+        Lp = Lrow + (-Lrow) % rows._quantum(Lrow)  # the width it launches
+        x32 = torch.randint(0, 256, (B.shape[1], Lp), dtype=torch.uint8,
+                            device=dev, generator=gen).view(torch.int32)
+        rows_ms = cuda_ms(lambda: rows.encode_lanes(x32), n_time)
+        nbytes = sum(B.shape) * Lrow
+        src = torch.randint(0, 256, (nbytes // 2,), dtype=torch.uint8,
+                            device=dev, generator=gen)
+        copy_ms = cuda_ms(lambda: torch.empty_like(src).copy_(src), n_time)
+        bound_ms, bound_by = bound(B, Lrow, sched_bound_parts)
+        t_bytes, t_ops = sched_bound_parts(B, Lrow)
         clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
-        say("kernels", f"{name}: {label} ({int(B.sum())} ones) at {Lp} "
-                       f"B/row (an {size >> 20} MiB object): {ms:.4f} ms "
-                       f"= {sum(B.shape) * Lp / ms / 1e6:.1f} GB/s, plain "
-                       f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        say("kernels", f"{name}: {label} ({int(B.sum())} ones), object "
+                       f"of {size >> 20} MiB, {Lrow} B per packet row: "
+                       f"packet mode {ms:.4f} ms = {nbytes / ms / 1e6:.1f} "
+                       f"GB/s, one whole apply {apply_ms:.4f} ms, plain "
+                       f"{plain_ms:.3f} ms; plane rows at {Lp} B/row "
+                       f"{rows_ms:.4f} ms; bound {bound_ms:.4f} ms "
                        f"({bound_by}; bytes {t_bytes:.4f}, operations "
-                       f"{t_ops:.4f}), {ms / bound_ms:.2f}x the bound; "
-                       f"after timing: {clocks}")
+                       f"{t_ops:.4f}), {ms / bound_ms:.2f}x the bound; a "
+                       f"device copy of the same {nbytes} bytes "
+                       f"{copy_ms:.4f} ms = {nbytes / copy_ms / 1e6:.1f} "
+                       f"GB/s; after timing: {clocks}")
         if row is None:
             row = {"name": name, "route": "cuda", "source": SOURCE,
                    "replaces": site, "launches": 0, "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "library_ms": None}
-            chunks = torch.randint(0, 256, (k, Lrow * w), dtype=torch.uint8,
-                                   device=dev, generator=gen)
-            g = Lrow // 64
-            perm_in = cuda_ms(lambda: chunks.view(k, g, w, 64).permute(
-                0, 2, 1, 3).reshape(k * w, g * 64), n_time)
-            out = torch.empty((2 * w, Lrow), dtype=torch.uint8, device=dev)
-            perm_out = cuda_ms(lambda: out.view(2, w, g, 64).permute(
-                0, 2, 1, 3).reshape(2, Lrow * w), n_time)
-            say("kernels", f"the codec's device permutes around it: in "
-                           f"{perm_in:.4f} ms, out {perm_out:.4f} ms")
-        del data
+        del chunks, x32, src
     return row
 
 

@@ -8,7 +8,9 @@
   ScheduledXor as its own tests run it (the plain graph, and the Pallas
   body in interpret mode) and against xor_schedule.naive_apply.
 - The host half of the CUDA kernel, the plan of sched_xor_plan, is run
-  here by an emulator that follows the kernel's loop.
+  here by an emulator that follows the kernel's loop and its addressing,
+  in plane-row mode and in packet mode (the codec's (n, L) chunks, read
+  and written where their packet rows lie).
 
 Everything is integer: tolerance 0 (byte-exact).
 """
@@ -277,22 +279,31 @@ def test_wrapper_counts_plain_runs_on_cpu():
 # -- the host half of the CUDA kernel, run by an emulator ----------------
 
 def _emulate_sched_xor(plan, x32):
-    """gf_sched_xor's loop: per block of SCHED_ROW_BLOCK output rows,
-    zeroed accumulators, each listed input row XORed into the rows of
-    its mask, then the block's rows stored."""
-    x = x32.astype(np.uint32)
-    y = np.full((plan.rows, x.shape[1]), 0xDEADBEEF, dtype=np.uint32)
-    nb = len(plan.ptr) - 1
-    for b in range(nb):
-        acc = np.zeros((K.SCHED_ROW_BLOCK, x.shape[1]), dtype=np.uint32)
-        for col, mask in plan.entries[plan.ptr[b]:plan.ptr[b + 1]]:
+    """gf_sched_xor's loop and addressing on (C / w, n4) uint32 lanes: a
+    row is n4 / 4 uint4 lanes and n4 / 4w column groups, and column group
+    g starts at lane (g // 4) * 4w + g % 4.  Per block of SCHED_ROW_BLOCK
+    output rows: zeroed accumulators, each (chunk, packet, mask) entry's
+    input XORed into the rows of its mask, then output row R stored in
+    chunk R // w at packet R % w."""
+    w = plan.w
+    x = np.asarray(x32).astype(np.uint32)
+    x = x.reshape(x.shape[0], -1, 4)
+    lanes = x.shape[1]
+    g = np.arange(lanes // w)
+    lane = (g // 4) * 4 * w + g % 4
+    y = np.full((plan.rows // w, lanes, 4), 0xDEADBEEF, dtype=np.uint32)
+    for b in range(len(plan.ptr) - 1):
+        acc = np.zeros((K.SCHED_ROW_BLOCK, len(g), 4), dtype=np.uint32)
+        for j, p, mask, _ in plan.entries[plan.ptr[b]:plan.ptr[b + 1]]:
+            v = x[j, 4 * p + lane]
             for i in range(K.SCHED_ROW_BLOCK):
                 if (int(mask) >> i) & 1:
-                    acc[i] ^= x[col]
+                    acc[i] ^= v
         for i in range(K.SCHED_ROW_BLOCK):
-            if b * K.SCHED_ROW_BLOCK + i < plan.rows:
-                y[b * K.SCHED_ROW_BLOCK + i] = acc[i]
-    return y
+            R = b * K.SCHED_ROW_BLOCK + i
+            if R < plan.rows:
+                y[R // w, 4 * (R % w) + lane] = acc[i]
+    return y.reshape(plan.rows // w, -1)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -303,7 +314,8 @@ def test_kernel_plan_computes_the_product(name):
     plan = K.sched_xor_plan(B)
     assert plan.ptr.dtype == plan.entries.dtype == np.int32
     assert len(plan.ptr) == -(-B.shape[0] // K.SCHED_ROW_BLOCK) + 1
-    assert sum(bin(int(m)).count("1") for m in plan.entries[:, 1]) \
+    assert plan.w == 1 and not plan.entries[:, 1].any()
+    assert sum(bin(int(m)).count("1") for m in plan.entries[:, 2]) \
         == int(B.sum())
     rows = RNG.integers(0, 256, (B.shape[1], 256), dtype=np.uint8)
     got = _emulate_sched_xor(plan, rows.view(np.uint32))
@@ -314,7 +326,7 @@ def test_plan_of_an_empty_matrix_and_of_many_blocks():
     """All-zero rows make no entries (the kernel stores zeros); 40 rows
     make three blocks."""
     plan = K.sched_xor_plan(np.zeros((3, 7), np.uint8))
-    assert plan.entries.shape == (0, 2) and list(plan.ptr) == [0, 0]
+    assert plan.entries.shape == (0, 4) and list(plan.ptr) == [0, 0]
     rows = RNG.integers(0, 256, (7, 64), dtype=np.uint8)
     assert not _emulate_sched_xor(plan, rows.view(np.uint32)).any()
     B = _zero_rows(40, 33, 9)
@@ -324,6 +336,99 @@ def test_plan_of_an_empty_matrix_and_of_many_blocks():
     assert np.array_equal(
         _emulate_sched_xor(plan, rows.view(np.uint32)).view(np.uint8),
         naive_apply(B, rows))
+
+
+#: one bit-matrix code for each packet count w, (technique, k)
+PACKET_CODES = {6: ("blaum_roth", 4), 7: ("liberation", 5),
+                8: ("liber8tion", 6)}
+
+
+def _packet_matrices(w):
+    """The encode drive and the densest {0,1} decode combo of the code
+    with w packets a granule (JAX package's codec)."""
+    from ceph_tpu import ec as ref_ec
+
+    technique, k = PACKET_CODES[w]
+    ref = ref_ec.factory("jerasure", {"technique": technique, "k": str(k),
+                                      "m": "2", "backend": "numpy"})
+    assert ref.w == w
+    return ref, (ref.bitmatrix,
+                 ref._decode_combo((0, 1), tuple(range(2, k + 2))))
+
+
+def _to_planes(chunks, w):
+    """(n, G * w * 64) chunks -> (n * w, G * 64) plane rows: the permute
+    the codec ran on the card before the kernel took the layout over."""
+    n, L = chunks.shape
+    g = L // (w * 64)
+    return chunks.reshape(n, g, w, 64).transpose(0, 2, 1, 3) \
+        .reshape(n * w, g * 64)
+
+
+@pytest.mark.parametrize("granules", [1, 3, 37])
+@pytest.mark.parametrize("w", [6, 7, 8])
+def test_packet_mode_addressing_equals_permuted_plane_rows(w, granules):
+    """The packet-mode plan, run with the kernel's addressing on the
+    chunks as they are, equals the plane-row product of the permuted
+    chunks, permuted back (exact)."""
+    _ref, mats = _packet_matrices(w)
+    for B in mats:
+        plan = K.sched_xor_plan(B, w)
+        assert plan.w == w
+        assert np.array_equal(plan.entries[:, 0] * w + plan.entries[:, 1],
+                              K.sched_xor_plan(B).entries[:, 0])
+        n = B.shape[1] // w
+        chunks = RNG.integers(0, 256, (n, granules * w * 64), dtype=np.uint8)
+        got = _emulate_sched_xor(plan, chunks.view(np.uint32))
+        want = naive_apply(B, _to_planes(chunks, w))
+        g = granules
+        want = want.reshape(-1, w, g, 64).transpose(0, 2, 1, 3) \
+            .reshape(B.shape[0] // w, -1)
+        assert np.array_equal(got.view(np.uint8), want)
+
+
+@pytest.mark.parametrize("w", [6, 7, 8])
+def test_packet_mode_op_equals_the_codecs(w):
+    """ScheduledXor in packet mode on the CPU (the plain version:
+    permute, schedule, permute back), its plain graph, and the port's
+    torch-backend codec equal the JAX package's numpy codec (exact)."""
+    from ceph_tpu_torch import ec
+
+    ref, mats = _packet_matrices(w)
+    technique, k = PACKET_CODES[w]
+    for B in mats:
+        op = K.ScheduledXor(B, device=CPU, w=w)
+        assert (op.r, op.c) == (B.shape[0] // w, B.shape[1] // w)
+        for granules in (1, 37):
+            chunks = RNG.integers(0, 256, (op.c, granules * w * 64),
+                                  dtype=np.uint8)
+            want = ref._unrows(ref._apply_bits(B, ref._rows(chunks)),
+                               op.r)
+            assert np.array_equal(op(chunks).numpy(), want)
+            got = K.gf_sched_xor_graph(B, w)(torch.from_numpy(chunks))
+            assert np.array_equal(got.numpy(), want)
+    port = ec.factory("jerasure", {"technique": technique, "k": str(k),
+                                   "m": "2", "backend": "torch",
+                                   "device": "cpu"})
+    port.DEVICE_APPLY_MIN_BYTES = 0
+    data = RNG.integers(0, 256, (k, 5 * w * 64), dtype=np.uint8)
+    assert np.array_equal(port.encode_chunks(data), ref.encode_chunks(data))
+    assert port.host_applies == 0
+
+
+def test_packet_mode_refuses_ragged_input():
+    """Packet mode takes whole granules and matrices of whole chunks."""
+    B = _packet_matrices(7)[1][0]
+    op = K.ScheduledXor(B, device=CPU, w=7)
+    with pytest.raises(ValueError, match="granules"):
+        op(np.zeros((5, 7 * 64 + 64), np.uint8))
+    with pytest.raises(ValueError):
+        op(np.zeros((35, 7 * 64), np.uint8))
+    assert tuple(op(np.zeros((5, 0), np.uint8)).shape) == (2, 0)
+    with pytest.raises(ValueError, match="whole chunks"):
+        K.ScheduledXor(B[:13], device=CPU, w=7)
+    with pytest.raises(ValueError, match="whole chunks"):
+        K.sched_xor_plan(B[:, :34], 7)
 
 
 def test_schedule_equals_reference_schedule():

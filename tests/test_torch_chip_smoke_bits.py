@@ -58,3 +58,34 @@ def test_sched_bound_counts_bytes_and_ones():
     dense = np.ones((16, 256), np.uint8)
     ms, by = chip_smoke.bound(dense, L, chip_smoke.sched_bound_parts)
     assert by == "bytes" and ms == 272 * L / 3.35e12 * 1e3
+
+
+def test_oracle_granules_cover_first_spread_and_last():
+    assert list(chip_smoke.oracle_granules(37)) == list(range(37))
+    g = chip_smoke.oracle_granules(37450)
+    assert g[0] == 0 and g[-1] == 37449 and len(g) == 65
+    assert np.all(np.diff(g) > 0) and np.diff(g).max() <= 37450 // 64 + 1
+
+
+def test_packet_mode_check_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's packet-mode check, run with device=cpu on 1 MiB
+    objects: every case passes on the plain version, and a kernel that
+    flips one byte is caught (tolerance 0)."""
+    from ceph_tpu_torch.ops import ec_kernels
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    cpu = torch.device("cpu")
+    cases, err = chip_smoke.check_packet_mode(cpu, gen, 1 << 20)
+    assert (cases, err) == (4 * len(chip_smoke.PACKET_CASES), 0)
+    call = ec_kernels.ScheduledXor.__call__
+
+    def flipped(self, data, **kw):
+        out = call(self, data, **kw).clone()
+        out[0, -1] ^= 1
+        return out
+
+    monkeypatch.setattr(ec_kernels.ScheduledXor, "__call__", flipped)
+    with pytest.raises(AssertionError, match="plain version"):
+        chip_smoke.check_packet_mode(cpu, gen, 1 << 20)

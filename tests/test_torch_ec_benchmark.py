@@ -7,10 +7,15 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from ceph_tpu.tools import ec_benchmark as ref_bench
 from ceph_tpu_torch.ec.plugin_tpu import TpuCode
 from ceph_tpu_torch.tools import ec_benchmark
+
+# small CPU tensors: one thread, so the suite's parallel workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
 
 SMALL = ["--size", str(64 * 1024), "--device", "cpu"]
 

@@ -6,9 +6,9 @@ On a CPU tensor the port's wrappers run their kernels' plain versions:
 They are held against the JAX RegionMatmul with its Pallas bodies in
 interpret mode, and against the numpy oracle gf256.encode_region.  The
 host halves of the CUDA kernels — K1's coefficient table and K2's
-lowered program with its liveness-allocated slots — are run here by
-emulators that follow the kernels' loops.  All comparisons are integer:
-tolerance 0 (byte-exact).
+bit-plane CSR with the bit order of its in-register transpose — are run
+here by emulators that follow the kernels' loops on numpy uint32 words.
+All comparisons are integer: tolerance 0 (byte-exact).
 """
 
 import numpy as np
@@ -179,16 +179,17 @@ def test_kernel_supports_answers():
         K.RegionMatmul(M, kernel="bogus", device=CPU)
 
 
-def test_bitxor_threads_follow_slot_count():
-    """The block size gf_bitxor gets: the largest that fits 48 KiB,
-    else what a block may opt in to, else None (unsupported)."""
-    optin = 232448  # H100: 227 KiB
-    assert K.bitxor_threads(10, optin) == 256
-    assert K.bitxor_threads(77, optin) == 128
-    assert K.bitxor_threads(452, optin) == 128
-    assert K.bitxor_threads(500, optin) == 64
-    assert K.bitxor_threads(optin // 128, optin) == 32
-    assert K.bitxor_threads(optin // 128 + 1, optin) is None
+def test_kernel_supports_bitxor_needs_its_planes_in_shared_memory(
+        monkeypatch):
+    """On the card ``bitxor`` needs the (8c + 1) planes of a 32-thread
+    block, 4 bytes each, to fit what a block may opt in to."""
+    from ceph_tpu_torch.ops import cuda_lib
+
+    monkeypatch.setattr(cuda_lib, "smem_optin", lambda device: 232448)
+    assert K.BITXOR_MIN_THREADS == 32
+    for c, ok in ((1, True), (32, True), (226, True), (227, False)):
+        M = np.ones((2, c), dtype=np.uint8)
+        assert K.kernel_supports("bitxor", M, device="cuda") is ok, c
 
 
 # -- host halves of the CUDA kernels, run by emulators -------------------
@@ -209,69 +210,122 @@ def _emulate_bitterm(M, x32):
     return y
 
 
-def _emulate_bitxor(prog, x32):
-    """gf_bitxor's interpreter over a lowered program, slots and all."""
-    x = x32.astype(np.uint32)
-    slots = np.zeros((prog.n_slots, x.shape[1]), dtype=np.uint32)
-    y = np.full((prog.rows, x.shape[1]), 0xDEADBEEF, dtype=np.uint32)
-    for op, a, b, c in prog.code.tolist():
-        if op == K.OP_LOAD:
-            slots[a] = (x[b] >> c) & 0x01010101
-        elif op == K.OP_XOR:
-            slots[a] = slots[b] ^ slots[c]
-        elif op == K.OP_INIT:
-            slots[a] = slots[b] << c
-        elif op == K.OP_ACC:
-            slots[a] ^= slots[b] << c
-        elif op == K.OP_STORE:
-            y[a] = slots[b]
-        else:
-            assert op == K.OP_ZERO
-            y[a] = 0
-    return y
+def _bitslice(words):
+    """gf_bitxor's in-register transpose (bitslice in csrc/gf_region.cu)
+    on (8, n) uint32 words: three delta-swap stages over word pairs."""
+    w = np.array(words, dtype=np.uint32)
+    for d, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F)):
+        for k in range(8):
+            if k & d:
+                continue
+            t = ((w[k] >> d) ^ w[k + d]) & np.uint32(m)
+            w[k + d] ^= t
+            w[k] ^= t << np.uint32(d)
+    return w
+
+
+def _emulate_bitxor(plan, x32):
+    """gf_bitxor's loop over its plan: each thread's 32-byte column group
+    (uint4 lanes g and g + n4 / 8 of a row) transposed into planes, plane
+    8c kept zero, each output plane the XOR of its CSR quads, and the
+    output planes transposed back into the same two lanes."""
+    x = np.asarray(x32).astype(np.uint32)
+    c, n4 = x.shape
+    assert c == plan.cols and n4 % 8 == 0
+    groups = n4 // 8
+    x4 = x.reshape(c, 2, groups, 4)
+    planes = np.zeros((8 * c + 1, groups), dtype=np.uint32)
+    for j in range(c):
+        planes[8 * j:8 * j + 8] = _bitslice(
+            np.concatenate([x4[j, 0].T, x4[j, 1].T]))
+    y4 = np.full((plan.rows, 2, groups, 4), 0xDEADBEEF, dtype=np.uint32)
+    for i in range(plan.rows):
+        acc = np.zeros((8, groups), dtype=np.uint32)
+        for s in range(8):
+            q = 8 * i + s
+            for quad in plan.idx[plan.ptr[q]:plan.ptr[q + 1]]:
+                for p in quad:
+                    acc[s] ^= planes[p]
+        out = _bitslice(acc)
+        y4[i, 0], y4[i, 1] = out[:4].T, out[4:].T
+    return y4.reshape(plan.rows, n4)
+
+
+def _check_plan(M, plan):
+    """The CSR lists each one of bitmatrix(M) once, in whole quads padded
+    with the zero plane 8c only."""
+    r, c = M.shape
+    B = gf256.bitmatrix(M)
+    assert plan.ptr.dtype == plan.idx.dtype == np.int32
+    assert plan.ptr.shape == (8 * r + 1,) and plan.idx.shape[1] == 4
+    assert (plan.rows, plan.cols) == (r, c)
+    for q in range(8 * r):
+        got = plan.idx[plan.ptr[q]:plan.ptr[q + 1]].ravel()
+        assert list(got[got != 8 * c]) == list(np.nonzero(B[q])[0])
+        assert (got == 8 * c).sum() < 4
+
+
+def test_bitslice_bit_order_and_round_trip():
+    """The transpose puts bit s of byte 4k + b at bit 8b + k of word s,
+    and applied twice it is the identity, on random bytes."""
+    data = RNG.integers(0, 256, (1000, 32), dtype=np.uint8)
+    words = data.view("<u4").T  # (8, 1000): word k = bytes 4k..4k+3
+    planes = _bitslice(words)
+    bits = np.unpackbits(data[:, :, None], axis=2, bitorder="little")
+    for s in range(8):
+        for k in range(8):
+            for b in range(4):
+                got = (planes[s] >> np.uint32(8 * b + k)) & np.uint32(1)
+                assert np.array_equal(got, bits[:, 4 * k + b, s])
+    assert np.array_equal(_bitslice(planes), words)
 
 
 @pytest.mark.parametrize("name", list(INTERP))
 def test_kernel_host_halves_compute_the_product(name):
-    """K1's table and K2's lowered program, run the way the kernels run
-    them, equal the oracle (exact) — including slot reuse."""
+    """K1's table and K2's plan, run the way the kernels run them, equal
+    the oracle and the JAX RegionMatmul's bitxor body in interpret mode
+    (exact)."""
     M = INTERP[name]
-    data = RNG.integers(0, 256, (M.shape[1], 256), dtype=np.uint8)
+    data = RNG.integers(0, 256, (M.shape[1], 512), dtype=np.uint8)
     x32 = data.view(np.uint32)
     want = gf256.encode_region(M, data)
     assert np.array_equal(_emulate_bitterm(M, x32).view(np.uint8), want)
-    prog = K.bitxor_program(M)
-    assert prog.code.dtype == np.int32 and prog.code.shape[1] == 4
-    assert np.array_equal(_emulate_bitxor(prog, x32).view(np.uint8), want)
+    plan = K.bitxor_plan(M)
+    _check_plan(M, plan)
+    assert np.array_equal(_emulate_bitxor(plan, x32).view(np.uint8), want)
+    ref = ref_k.RegionMatmul(M, interpret=True, kernel="bitxor")
+    assert ref._use_pallas
+    assert np.array_equal(np.asarray(ref(data)), want)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 12, 16, 24, 32])
+def test_bitxor_plan_c_1_to_32(c):
+    """Random and sparse matrices, c from 1 to 32: the plan, run the way
+    gf_bitxor runs it, equals the oracle (exact)."""
+    for M in (RNG.integers(0, 256, (3, c), dtype=np.uint8),
+              _sparse(4, c, c)):
+        plan = K.bitxor_plan(M)
+        _check_plan(M, plan)
+        data = RNG.integers(0, 256, (c, 256), dtype=np.uint8)
+        got = _emulate_bitxor(plan, data.view(np.uint32)).view(np.uint8)
+        assert np.array_equal(got, gf256.encode_region(M, data)), c
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 3), (3, 8), (6, 6),
                                    (4, 16)])
-def test_lowered_program_on_random_and_zero_rows(shape):
-    """Random matrices with zero rows: every output row is written once
-    (STORE or ZERO), slots stay below the node count, and the program
-    equals the oracle (exact)."""
+def test_bitxor_plan_on_random_and_zero_rows(shape):
+    """Random sparse matrices with zero rows: a zero row of M has an
+    empty CSR row for each of its 8 planes (the kernel stores zeros), and
+    the plan equals the oracle (exact)."""
     for trial in range(3):
         M = _sparse(*shape, seed=100 * trial + shape[1])
-        prog = K.bitxor_program(M)
-        stores = [a for op, a, _b, _c in prog.code.tolist()
-                  if op in (K.OP_STORE, K.OP_ZERO)]
-        assert sorted(stores) == list(range(shape[0]))
-        sched = K.bitxor_schedule(M)
-        assert prog.n_slots <= sched.n_in + len(sched.ops) + shape[0]
+        plan = K.bitxor_plan(M)
+        _check_plan(M, plan)
+        for i in np.nonzero(~M.any(axis=1))[0]:
+            assert plan.ptr[8 * i] == plan.ptr[8 * i + 8]
         data = RNG.integers(0, 256, (shape[1], 128), dtype=np.uint8)
-        got = _emulate_bitxor(prog, data.view(np.uint32)).view(np.uint8)
+        got = _emulate_bitxor(plan, data.view(np.uint32)).view(np.uint8)
         assert np.array_equal(got, gf256.encode_region(M, data))
-
-
-def test_live_set_smaller_than_node_count():
-    """For the main matrices the liveness allocation keeps fewer slots
-    than the schedule has nodes."""
-    C = ref_gf.vandermonde_matrix(8, 3)
-    for M in (C, ref_gf.decode_matrix(C, 8, [0, 2, 3, 5, 6, 7, 8, 10])):
-        sched = K.bitxor_schedule(M)
-        assert K.bitxor_program(M).n_slots < len(sched.used_inputs) \
-            + len(sched.ops)
 
 
 def test_schedule_rebuilt_from_reference_arrays_runs_equal():

@@ -8,12 +8,17 @@ field.  Everything is integer, so the tolerance is 0 (exact equality).
 
 import numpy as np
 import pytest
+import torch
 
 from ceph_tpu.ops import gf256 as ref_gf
 from ceph_tpu.ops import xor_schedule as ref_xs
 from ceph_tpu_torch.ec.convert import schedule_from_arrays
 from ceph_tpu_torch.ops import gf256
 from ceph_tpu_torch.ops import xor_schedule as xs
+
+# small CPU tensors: one thread, so the suite's parallel workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
 
 RNG = np.random.default_rng(1201)
 

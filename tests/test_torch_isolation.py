@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# small CPU tensors: one thread, so the suite's parallel workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ceph_tpu_torch")
 

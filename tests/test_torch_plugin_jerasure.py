@@ -135,7 +135,7 @@ def test_bit_codes_equal_reference(prof):
 
 
 def test_bit_code_device_path_equals_host_path():
-    """The torch backend (device permutes + scheduled XOR) and the
+    """The torch backend (the scheduled XOR in packet mode) and the
     numpy backend (host transposes) of the port give the same bytes, on
     chunks of many granules (exact)."""
     prof = {"technique": "liber8tion", "k": "6", "m": "2"}
