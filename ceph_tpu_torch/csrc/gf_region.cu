@@ -7,25 +7,54 @@
 //
 // gf_bitterm (K1) replaces the Pallas bit-term kernel of the JAX package,
 //   ceph_tpu/ops/ec_kernels.py RegionMatmul._lanes_op with the body
-//   _rows_op/_accumulate_row over _terms.  For every output row it
-//   XOR-accumulates ((x[j] >> s) & 0x01010101) * gf(M[i,j] * 2^s): the
-//   masked shift puts bit s of each byte in the byte's low bit, and the
-//   integer multiply broadcasts the constant byte into every byte slot with
-//   no carries.  Coefficient 1 is one XOR, coefficient 0 is skipped.
-//   Design: a grid-stride loop over 16-byte lane groups (uint4), neighbouring
-//   threads on neighbouring addresses.  Each thread owns all r output rows of
-//   its group, kRowBlock rows at a time in registers, so x is re-read only
-//   ceil(r / kRowBlock) times (once for r <= 4; the re-reads hit L1).  The
-//   per-matrix table gf(M[i,j] * 2^s) is built on the host as (r, c, 8)
-//   bytes and staged once per block in shared memory with the coefficient
-//   bytes beside it as the skip / plain-XOR flag: 9 bytes per coefficient,
-//   at most 9 KiB for r, c <= 32.
+//   _rows_op/_accumulate_row over _terms, which spends 8 shift-mask-multiply
+//   terms on every general coefficient.  Here the product is a nibble-table
+//   lookup done by byte permutes (PTX prmt, SASS PRMT), four bytes at once:
+//   a * b = lo_a[b & 15] ^ hi_a[b >> 4] with lo_a[n] = a * n and
+//   hi_a[n] = a * (n << 4), the host's ec_kernels.nibble_table(M), (r, c, 32)
+//   bytes lo[16] then hi[16].  A prmt picks 4 bytes out of 8 by 3-bit
+//   indices, so the kernel splits each nibble once more, by linearity:
+//   lo_a[n] = lo_a[n & 7] ^ (bit 3 of n ? lo_a[8] : 0), and the same for hi.
+//   1. Per input word v, shared by every output row: the selectors (bits
+//      0-2 and bits 4-6 of each byte k packed into nibble k, an AND, a shift,
+//      an OR and a prmt each) and the byte masks of bits 3 and 7 (a prmt in
+//      sign-replicate mode on v << 4 and on v): 12 instructions as
+//      written, 10 as ptxas issues them.
+//   2. Per word and general coefficient: one prmt on lo[0..7], one on
+//      hi[0..7], one 3-input XOR of both into the accumulator, and one
+//      AND-XOR each for the bit-3 and bit-7 terms (lo[8], hi[8] broadcast
+//      to 4 bytes once per coefficient and thread): 5 instructions as
+//      written, which ptxas issues as 2 PRMT and 3-4 LOP3.  A
+//      coefficient 1 is one XOR, a 0 is skipped; the matrix is the same for
+//      every thread, so these branches are warp-uniform.
+//   Layout: a grid-stride loop over 16-byte lane groups (uint4), neighbouring
+//   threads on neighbouring addresses.  A thread loads kBitermBatch input
+//   rows of its group at once, then applies them to kRowBlock output rows
+//   held in registers; x is re-read only ceil(r / kRowBlock) times (the
+//   re-reads hit L1/L2).  The table and the coefficient bytes (the skip /
+//   plain-XOR flags) are staged once per block in shared memory, 33 bytes
+//   per coefficient, and read as warp-uniform 16-byte broadcasts, one pair
+//   per coefficient for the thread's 4 words.
 //   What bounds it: bytes are c*N read and r*N written (for the 8+3 encode
-//   at N = 8 MiB per row, 88 MiB, ~27.5 us at 3.35 TB/s).  Its own
-//   instruction mix is larger: per lane column of 32 input bytes the 8+3
-//   encode is 332 shifts, ANDs and XORs on the ALU pipe and 112
-//   multiply-adds on the FMA pipe, 64 results per clock per SM each; at
-//   132 SMs and 1.98 GHz the ALU pipe alone needs ~42 us.
+//   at N = 8 MiB per row, 88 MiB, ~27.5 us at 3.35 TB/s).  Its instruction
+//   mix for that encode, as ptxas issues it, is 726 ALU instructions per
+//   16-byte column group of all rows (9 per input word: ptxas turns the
+//   OR-with-shift into LEA.HI and the shift left into an FMA-pipe IMAD; 25
+//   per general coefficient and group; 4 per coefficient 1; 2 flag
+//   compares per coefficient; chip_smoke.bitterm_mix), ~23 us at 64
+//   results per clock per SM, 132 SMs and 1.98 GHz, under the byte bound;
+//   the bit-term chain it replaced needed ~42 us there.  On an H100
+//   SXM at 700 W its loads and stores alone run at a device copy's time
+//   (~36 us) and the selectors add ~1 us, but each coefficient's flag and
+//   table loads feed warp-uniform branches and the permutes behind them, so
+//   the loop needs warps to hide that latency: at 97 registers (2 blocks of
+//   256 per SM) the encode took ~49 us; 4 input rows at once and
+//   __launch_bounds__(256, 4) hold it to 64 registers with no spills, 4
+//   blocks per SM, ~42 us.  More blocks spill; 8 rows in registers, whole
+//   16-entry lookups, no flags (every coefficient by its table) or
+//   128-thread blocks were no faster at both the encode and the 8x8 decode
+//   (experiments/kernel_variants.cu sets these switches of this same
+//   loop).
 //
 // gf_bitxor (K2) replaces the Pallas bitxor body of the same kernel,
 //   ceph_tpu/ops/ec_kernels.py _bitxor_rows (chosen by RegionMatmul
@@ -59,7 +88,7 @@
 //   kernel_variants.py, which switches the loop's phases off one at a
 //   time): the input phase alone takes ~40 us, the CSR walk alone ~40 us,
 //   the transposes under 1 % of the whole, and the two phases overlap only
-//   in part, so it runs at ~2.1x the byte bound, level with K1.  Keep the
+//   in part, so it runs at ~2.1x the byte bound (K1: ~1.55x).  Keep the
 //   loop in one function: with its input phase in a device function of its
 //   own, ptxas kept the shared-memory base in a vector register instead of
 //   a uniform one, the CSR walk's addresses moved from LEA to IMAD, and
@@ -105,17 +134,18 @@
 //   chosen by timing the others with experiments/kernel_variants.py, which
 //   instantiates this same loop at other template arguments.
 //
-// None of them uses the tensor cores; wgmma, TMA and the nibble-table
-// design are later work.
+// None of them uses the tensor cores; wgmma and TMA are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr uint32_t kMask = 0x01010101u;
-constexpr int kRowBlock = 4;
+constexpr int kRowBlock = 4;        // output rows a gf_bitterm thread holds
+constexpr int kBitermBatch = 4;     // input rows loaded at once by gf_bitterm
 constexpr int kBitermThreads = 256;
+constexpr int kBitermMinBlocks = 4;  // its blocks per SM: 64 registers
+constexpr int kBitermPerSm = 16;    // gf_bitterm's grid cap, blocks per SM
 constexpr int kBitxorBatch = 8;     // input rows loaded at once by gf_bitxor
 constexpr int kSchedRows = 16;      // must match ec_kernels.SCHED_ROW_BLOCK
 constexpr int kSchedBatch = 4;      // loads in flight a thread in gf_sched_xor
@@ -128,60 +158,149 @@ __device__ __forceinline__ void xor4(uint4& a, const uint4& b) {
   a.x ^= b.x; a.y ^= b.y; a.z ^= b.z; a.w ^= b.w;
 }
 
-__device__ __forceinline__ void mac4(uint4& a, const uint4& v, int s,
-                                     uint32_t coef) {
-  a.x ^= ((v.x >> s) & kMask) * coef;
-  a.y ^= ((v.y >> s) & kMask) * coef;
-  a.z ^= ((v.z >> s) & kMask) * coef;
-  a.w ^= ((v.w >> s) & kMask) * coef;
+// PTX prmt.b32 in its default mode: byte n of the result is byte
+// (s >> 4n) & 7 of the 8 bytes {b, a} (bytes 0-3 from a), or, where bit
+// 4n + 3 of s is set, that byte's top bit copied into all 8 bits.  Only
+// the low 16 bits of s are read.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
 }
 
-__global__ void gf_bitterm_kernel(const uint4* __restrict__ x,
-                                  uint4* __restrict__ y,
-                                  const uint8_t* __restrict__ coef,
-                                  const uint2* __restrict__ tab, int r, int c,
-                                  long long groups) {
+// What gf_bitterm computes once per input word, for every output row.
+struct Nibbles {
+  uint32_t lo;   // nibble k = bits 0-2 of byte k: prmt selector into lo[0..7]
+  uint32_t hi;   // nibble k = bits 4-6 of byte k: prmt selector into hi[0..7]
+  uint32_t mlo;  // byte k = 0xff where bit 3 of byte k is set
+  uint32_t mhi;  // byte k = 0xff where bit 7 of byte k is set
+};
+
+__device__ __forceinline__ Nibbles nibbles(uint32_t v) {
+  // t has the 3-bit index of byte k at bits 8k..8k+2; t | t >> 4 puts those
+  // of bytes 0 and 1 in byte 0 and those of bytes 2 and 3 in byte 2
+  const uint32_t t = v & 0x07070707u;
+  const uint32_t h = (v >> 4) & 0x07070707u;
+  Nibbles n;
+  n.lo = prmt(t | (t >> 4), 0u, 0x0020u);
+  n.hi = prmt(h | (h >> 4), 0u, 0x0020u);
+  n.mlo = prmt(v << 4, 0u, 0xBA98u);  // sign-replicate bytes 0-3
+  n.mhi = prmt(v, 0u, 0xBA98u);
+  return n;
+}
+
+// gf_bitterm's ways of multiplying: the library's product (kSplit), the
+// product by whole 16-entry lookups (kSelect16), and the two phases alone,
+// which experiments/kernel_variants.cu times.
+enum BitermMode { kSplit, kSelect16, kLoadsOnly, kSelectorsOnly };
+
+// acc ^= a * v over GF(2^8) for one coefficient a, given v's Nibbles and
+// a's table (lo = lo_a[0..15], hi = hi_a[0..15] as uint4).
+template <int kMode>
+__device__ __forceinline__ uint32_t mul_word(const Nibbles& n, const uint4& lo,
+                                             const uint4& hi, uint32_t b8,
+                                             uint32_t b128) {
+  if constexpr (kMode == kSelect16) {
+    // 16 entries: one prmt on entries 0-7, one on 8-15, bit 3 chooses
+    const uint32_t l0 = prmt(lo.x, lo.y, n.lo), l1 = prmt(lo.z, lo.w, n.lo);
+    const uint32_t h0 = prmt(hi.x, hi.y, n.hi), h1 = prmt(hi.z, hi.w, n.hi);
+    return ((l0 & ~n.mlo) | (l1 & n.mlo)) ^ ((h0 & ~n.mhi) | (h1 & n.mhi));
+  } else {
+    // lo_a[n] = lo_a[n & 7] ^ (bit 3 ? lo_a[8] : 0), the same for hi
+    return prmt(lo.x, lo.y, n.lo) ^ prmt(hi.x, hi.y, n.hi) ^ (n.mlo & b8) ^
+           (n.mhi & b128);
+  }
+}
+
+// K1's loop.  kRows output rows are held in registers and kBatch input rows
+// loaded at once; the library instantiates the defaults.  The other
+// settings are for experiments/kernel_variants.cu: kMode (the combine, or
+// one phase alone), kThreads and kMinBlocks (block size, register cap),
+// and kFlags (false: every coefficient, 0 and 1 too, through its table,
+// with no branch and no flag load).
+template <int kRows = kRowBlock, int kBatch = kBitermBatch, int kMode = kSplit,
+          int kThreads = kBitermThreads, int kMinBlocks = kBitermMinBlocks,
+          bool kFlags = true>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gf_bitterm_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+                  const uint8_t* __restrict__ coef,
+                  const uint4* __restrict__ tab, int r, int c,
+                  long long groups) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rc = r * c;
-  uint2* s_tab = reinterpret_cast<uint2*>(smem);
-  uint8_t* s_coef = smem + static_cast<size_t>(rc) * sizeof(uint2);
-  for (int t = threadIdx.x; t < rc; t += blockDim.x) {
-    s_tab[t] = tab[t];
-    s_coef[t] = coef[t];
-  }
+  uint4* s_tab = reinterpret_cast<uint4*>(smem);  // lo, hi per coefficient
+  uint8_t* s_coef = smem + static_cast<size_t>(rc) * 2 * sizeof(uint4);
+  for (int t = threadIdx.x; t < 2 * rc; t += blockDim.x) s_tab[t] = tab[t];
+  for (int t = threadIdx.x; t < rc; t += blockDim.x) s_coef[t] = coef[t];
   __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < groups; g += stride) {
-    for (int i0 = 0; i0 < r; i0 += kRowBlock) {
-      uint4 acc[kRowBlock];
+  // input rows j0.. of column group g
+  auto load = [&](long long g, int j0, uint4 (&v)[kBatch]) {
 #pragma unroll
-      for (int ii = 0; ii < kRowBlock; ++ii) acc[ii] = make_uint4(0, 0, 0, 0);
-      for (int j = 0; j < c; ++j) {
-        const uint4 v = x[static_cast<long long>(j) * groups + g];
+    for (int b = 0; b < kBatch; ++b) {
+      v[b] = make_uint4(0, 0, 0, 0);
+      if (j0 + b < c) v[b] = x[static_cast<long long>(j0 + b) * groups + g];
+    }
+  };
+  // acc[ii] ^= M[i0 + ii, j0 + b] * v[b] for the rows and inputs there are
+  auto apply = [&](const uint4 (&v)[kBatch], int i0, int j0,
+                   uint4 (&acc)[kRows]) {
 #pragma unroll
-        for (int ii = 0; ii < kRowBlock; ++ii) {
-          const int i = i0 + ii;
-          if (i < r) {
-            const uint8_t cf = s_coef[i * c + j];
-            if (cf == 1) {
-              xor4(acc[ii], v);
-            } else if (cf != 0) {
-              const uint2 w = s_tab[i * c + j];
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b;
+      if (j >= c) break;
+      if constexpr (kMode == kLoadsOnly) {
+        xor4(acc[0], v[b]);
+        continue;
+      }
+      const Nibbles n[4] = {nibbles(v[b].x), nibbles(v[b].y),
+                            nibbles(v[b].z), nibbles(v[b].w)};
+      if constexpr (kMode == kSelectorsOnly) {
+        acc[0].x ^= n[0].lo ^ n[0].hi ^ n[0].mlo ^ n[0].mhi;
+        acc[0].y ^= n[1].lo ^ n[1].hi ^ n[1].mlo ^ n[1].mhi;
+        acc[0].z ^= n[2].lo ^ n[2].hi ^ n[2].mlo ^ n[2].mhi;
+        acc[0].w ^= n[3].lo ^ n[3].hi ^ n[3].mlo ^ n[3].mhi;
+        continue;
+      }
 #pragma unroll
-              for (int s = 0; s < 4; ++s) {
-                mac4(acc[ii], v, s, (w.x >> (8 * s)) & 0xffu);
-                mac4(acc[ii], v, s + 4, (w.y >> (8 * s)) & 0xffu);
-              }
-            }
-          }
+      for (int ii = 0; ii < kRows; ++ii) {
+        const int i = i0 + ii;
+        if (i >= r) break;
+        const int k = i * c + j;
+        const uint8_t cf = kFlags ? s_coef[k] : 2;
+        if (cf == 1) {
+          xor4(acc[ii], v[b]);
+        } else if (cf != 0) {
+          const uint4 lo = s_tab[2 * k], hi = s_tab[2 * k + 1];
+          const uint32_t b8 = prmt(lo.z, 0u, 0u);    // lo_a[8] = a * 8
+          const uint32_t b128 = prmt(hi.z, 0u, 0u);  // hi_a[8] = a * 128
+          acc[ii].x ^= mul_word<kMode>(n[0], lo, hi, b8, b128);
+          acc[ii].y ^= mul_word<kMode>(n[1], lo, hi, b8, b128);
+          acc[ii].z ^= mul_word<kMode>(n[2], lo, hi, b8, b128);
+          acc[ii].w ^= mul_word<kMode>(n[3], lo, hi, b8, b128);
         }
       }
+    }
+  };
+  auto store = [&](long long g, int i0, const uint4 (&acc)[kRows]) {
 #pragma unroll
-      for (int ii = 0; ii < kRowBlock; ++ii) {
-        if (i0 + ii < r) y[static_cast<long long>(i0 + ii) * groups + g] = acc[ii];
+    for (int ii = 0; ii < kRows; ++ii) {
+      if (i0 + ii < r)
+        y[static_cast<long long>(i0 + ii) * groups + g] = acc[ii];
+    }
+  };
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; g < groups; g += stride) {
+    for (int i0 = 0; i0 < r; i0 += kRows) {
+      uint4 acc[kRows];
+#pragma unroll
+      for (int ii = 0; ii < kRows; ++ii) acc[ii] = make_uint4(0, 0, 0, 0);
+      for (int j0 = 0; j0 < c; j0 += kBatch) {
+        uint4 v[kBatch];
+        load(g, j0, v);
+        apply(v, i0, j0, acc);
       }
+      store(g, i0, acc);
     }
   }
 }
@@ -432,6 +551,32 @@ int smem_optin() {
   return n;
 }
 
+// gf_bitterm_kernel<...> over `groups` uint4 lane groups, at most
+// kBitermPerSm blocks per SM, its table and flags (33 bytes a coefficient)
+// staged in shared memory.
+template <int kRows = kRowBlock, int kBatch = kBitermBatch, int kMode = kSplit,
+          int kThreads = kBitermThreads, int kMinBlocks = kBitermMinBlocks,
+          bool kFlags = true>
+cudaError_t launch_bitterm(const void* x, void* y, const void* coef,
+                           const void* tab, int r, int c, long long groups,
+                           cudaStream_t stream) {
+  auto* kernel = gf_bitterm_kernel<kRows, kBatch, kMode, kThreads, kMinBlocks,
+                                   kFlags>;
+  const size_t smem = static_cast<size_t>(r) * c * (2 * sizeof(uint4) + 1);
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks = grid_for(groups, kThreads, kBitermPerSm);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y),
+      static_cast<const uint8_t*>(coef), static_cast<const uint4*>(tab), r, c,
+      groups);
+  return cudaGetLastError();
+}
+
 // gf_bitxor_kernel<kStage, kBatch, kIn, kWalk, kSlice> in blocks of
 // `threads` with `smem` bytes of shared memory.
 template <bool kStage, int kBatch = kBitxorBatch, bool kIn = true,
@@ -481,27 +626,15 @@ cudaError_t launch_sched(const void* x, void* y, const void* ptr,
 extern "C" {
 
 // K1.  x: (c, n4) uint32, y: (r, n4) uint32, coef: (r, c) bytes,
-// tab: (r, c, 8) bytes = gf(M[i,j] * 2^s).  n4 % 4 == 0, pointers 16-byte
-// aligned (the wrapper checks).  Returns cudaGetLastError().
+// tab: (r, c, 32) bytes, lo[16] = M[i,j] * n then hi[16] = M[i,j] * (n << 4)
+// (ec_kernels.nibble_table).  n4 % 4 == 0, pointers 16-byte aligned (the
+// wrapper checks).  Returns cudaGetLastError().
 int gf_bitterm(const void* x, void* y, const void* coef, const void* tab,
                int r, int c, long long n4, void* stream) {
   if (r <= 0 || c <= 0 || n4 < 0 || n4 % 4) return cudaErrorInvalidValue;
   if (n4 == 0) return cudaSuccess;
-  const long long groups = n4 / 4;
-  const size_t smem = static_cast<size_t>(r) * c * (sizeof(uint2) + 1);
-  if (smem > kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gf_bitterm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const long long blocks = grid_for(groups, kBitermThreads, 16);
-  gf_bitterm_kernel<<<static_cast<unsigned>(blocks), kBitermThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y),
-      static_cast<const uint8_t*>(coef), static_cast<const uint2*>(tab), r, c,
-      groups);
-  return cudaGetLastError();
+  return launch_bitterm(x, y, coef, tab, r, c, n4 / 4,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K2.  x: (c, n4) uint32, y: (r, n4) uint32; ptr: (8r + 1) int32 quad

@@ -22,8 +22,11 @@ Kernel realizations (the names of the ``kernel=`` profile key, KERNELS):
 - ``xla``    — the plain PyTorch version of the bit-term chain
   (gf_matmul_graph).  Viable only for CPU tensors: on the card the port
   runs hand-written kernels only.
-- ``pallas`` — the bit-term CUDA kernel ``gf_bitterm`` (wrapper
-  gf_bitterm_lanes); its plain version on a CPU tensor.
+- ``pallas`` — the nibble-table CUDA kernel ``gf_bitterm`` (wrapper
+  gf_bitterm_lanes): each product a * b as lo_a[b & 15] ^ hi_a[b >> 4],
+  looked up four bytes at a time by byte permutes in a per-matrix table
+  (nibble_table); its plain version, the bit-term chain above, on a CPU
+  tensor.
 - ``bitxor`` — the bit-sliced CUDA kernel ``gf_bitxor`` (wrapper
   gf_bitxor_lanes): the product over GF(2) bit-planes, transposed in
   registers, with the rows of gf256.bitmatrix(M) as a CSR (bitxor_plan);
@@ -99,9 +102,10 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     - ``mxu`` is not ported yet;
     - ``xla`` is the plain version, viable only on the CPU;
     - on the CPU ``pallas`` and ``bitxor`` run their plain versions;
-    - on the card ``pallas`` needs its (r, c, 9)-byte coefficient table
-      to fit a block's shared memory, and ``bitxor`` needs the (8c + 1)
-      bit-planes of a BITXOR_MIN_THREADS-thread block to fit it.
+    - on the card ``pallas`` needs its nibble table and coefficient
+      flags, 33 bytes a coefficient, to fit a block's shared memory, and
+      ``bitxor`` needs the (8c + 1) bit-planes of a
+      BITXOR_MIN_THREADS-thread block to fit it.
     """
     if kernel not in KERNELS or kernel == "mxu":
         return False
@@ -118,7 +122,7 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     from . import cuda_lib
     smem = cuda_lib.smem_optin(device)
     if kernel == "pallas":
-        return M.shape[0] * M.shape[1] * 9 <= smem
+        return M.shape[0] * M.shape[1] * 33 <= smem
     return (8 * M.shape[1] + 1) * 4 * BITXOR_MIN_THREADS <= smem
 
 
@@ -162,11 +166,15 @@ def _rows_op(x, terms_all):
     return torch.stack([_accumulate_row(x, t) for t in terms_all])
 
 
-def bitterm_table(M: np.ndarray) -> np.ndarray:
-    """K1's per-matrix table: (r, c, 8) bytes gf(M[i,j] * x^s)."""
+def nibble_table(M: np.ndarray) -> np.ndarray:
+    """K1's per-matrix table: (r, c, 32) bytes, lo[n] = M[i,j] * n for
+    n < 16, then hi[n] = M[i,j] * (n << 4), so that M[i,j] * b =
+    lo[b & 15] ^ hi[b >> 4]."""
     M = np.asarray(M, dtype=np.uint8)
-    powers = np.uint8(1) << np.arange(8, dtype=np.uint8)
-    return gf256.mul_table()[M[:, :, None], powers[None, None, :]]
+    n = np.arange(16, dtype=np.uint8)
+    mul = gf256.mul_table()[M]  # (r, c, 256)
+    return np.ascontiguousarray(
+        np.concatenate([mul[..., n], mul[..., n << 4]], axis=2))
 
 
 def _lanes_view(data_u8: torch.Tensor) -> torch.Tensor:
@@ -192,8 +200,9 @@ def gf_bitterm_lanes(x32: torch.Tensor, terms_all, table=None
 
     On a CPU tensor it runs the plain version over ``terms_all``
     (_terms).  On a CUDA tensor it launches ``gf_bitterm`` with
-    ``table`` = (coef (r, c) uint8, tab (r, c, 8) uint8) resident on
-    the same device, and needs n4 % 4 == 0 and 16-byte alignment."""
+    ``table`` = (coef (r, c) uint8, tab (r, c, 32) uint8, the
+    nibble_table) resident on the same device, and needs n4 % 4 == 0 and
+    16-byte alignment."""
     r = len(terms_all)
     if x32.device.type == "cpu":
         return _rows_op(x32.view(torch.int32), terms_all)
@@ -724,7 +733,7 @@ class RegionMatmul(_LaneOp):
                 if self.kernel == "pallas":
                     self._dev_state = (
                         torch.from_numpy(self.M.copy()).to(dev),
-                        torch.from_numpy(bitterm_table(self.M)).to(dev))
+                        torch.from_numpy(nibble_table(self.M)).to(dev))
                 else:
                     plan = bitxor_plan(self.M)
                     self._dev_state = (torch.from_numpy(plan.ptr).to(dev),

@@ -12,8 +12,9 @@ H100; the kernels are built for sm_90a).  Phases, one line each:
 3. kernels — each kernel against its plain version on the card
              (torch.equal) and against the numpy oracle, over the listed
              matrices and lengths, K3 in plane-row and in packet mode;
-             CUDA-event times at the main shapes, with K3's yardstick (a
-             device copy of the same bytes).
+             CUDA-event times at the main shapes (K1 and K2 at the 3x8
+             encode and the 8x8 decode, with K1's instruction floor), with
+             K3's yardstick (a device copy of the same bytes).
 4. slice   — the ``tpu`` plugin (reed_sol_van k=8, m=3) on the card:
              encode_batch / decode_batch of 64 x 1 MiB stripes and
              encode / decode through the interface, byte-exact.
@@ -32,7 +33,9 @@ Phases 4-6 are the main path of the ``tpu`` plugin and phases 7-9 the
 bit-matrix path: the launch counts are set to 0 before each path and
 read after it.  The region kernels must have launched on the first, the
 scheduled-XOR kernel on the second, the plain versions on neither, and
-no kernel pick may have skipped a candidate.  Then one JSON line lists
+no kernel pick may have skipped a candidate; where the first path raced
+a matrix of phase 3 at its length, it must have pinned the kernel that
+phase 3 timed faster (unless the two are within 5 %).  Then one JSON line lists
 every kernel, and the last line is the ``{"ok": true, "device": ...}``
 object.  Any failure exits nonzero, and so does a process with no CUDA
 card.
@@ -55,6 +58,7 @@ import torch
 
 from ceph_tpu_torch import ec
 from ceph_tpu_torch.ec.bitmatrix_code import BitMatrixErasureCode
+from ceph_tpu_torch.ec.matrix_code import MatrixErasureCode, _shape_bucket
 from ceph_tpu_torch.ops import cuda_lib, ec_kernels, gf256, xor_schedule
 from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
 from ceph_tpu_torch.utils.perf import kernel_profiler
@@ -66,12 +70,10 @@ SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12
-#: 32-bit shift, logic and multiply-add results per clock per SM on
-#: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-#: instruction throughput), and warp instructions issued per clock per
-#: SM (four sub-partitions, one warp instruction each)
+#: 32-bit shift and logic results per clock per SM on compute
+#: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput)
 INT32_PER_CLK_SM = 64
-ISSUE_PER_CLK_SM = 4 * 32
 
 KERNELS = {
     # realization -> (kernel name, launch counter, plain version, TPU site)
@@ -86,6 +88,9 @@ SCHED_KERNEL = ("gf_sched_xor", "gf_sched_xor",
 SOURCE = "ceph_tpu_torch/csrc/gf_region.cu"
 
 MAIN_L = 8 << 20  # bytes per row at the main shape: 64 x 128 KiB chunks
+#: smoke_matrices timed on (c, MAIN_L) for K1 and K2, the main shape
+#: first: the encode of encode_batch and the decode of {1,4,9}
+TIMED_SHAPES = ("reed_sol_van 3x8", "decode 8x8 {1,4,9}")
 CLI_L = 10 << 20  # bytes per row of ec_benchmark's 80 MiB object, k=8
 LENGTHS = (4, 508, 512, 32 * 1024 + 4, 100_000, MAIN_L, CLI_L)
 
@@ -159,27 +164,42 @@ def bound(M: np.ndarray, L: int, parts=bound_parts) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bitterm_mix(M: np.ndarray) -> tuple[int, int]:
-    """gf_bitterm's instructions per 32-bit lane column as its source
-    writes them: (shift/logic ops, multiply-adds).  A coefficient 1 is
-    one XOR; any other nonzero one is 7 shifts, 8 ANDs and 8 XORs
-    around 8 multiplies."""
+#: gf_bitterm's instructions on the ALU pipe, as its SASS (sm_90a) issues
+#: them for one 16-byte column group (4 words of each row): per input word
+#: 9 for the selectors and byte masks (2 LOP3, 1 SHF, 2 LEA.HI, 4 PRMT;
+#: the shift left goes to the FMA pipe as IMAD.SHL); per general
+#: coefficient 25 (2 PRMT broadcasts of the table, 8 PRMT lookups, 15
+#: LOP3); per coefficient 1, 4 LOP3; per coefficient, 2 ISETP on its flag
+BITTERM_WORD_OPS = 9
+BITTERM_GENERAL_OPS = 25
+BITTERM_UNIT_OPS = 4
+BITTERM_FLAG_OPS = 2
+#: output rows a gf_bitterm thread holds (kRowBlock in csrc/gf_region.cu):
+#: the selectors are computed once per block of this many rows
+BITTERM_ROW_BLOCK = 4
+
+
+def bitterm_mix(M: np.ndarray) -> int:
+    """gf_bitterm's ALU instructions per 16-byte column group of every
+    row (4 lane columns, one thread's pass), from the BITTERM_*_OPS
+    counts: the selectors of every input word once per block of
+    BITTERM_ROW_BLOCK output rows, then each coefficient by its kind."""
     M = np.asarray(M)
-    general = int(((M != 0) & (M != 1)).sum())
-    return int((M == 1).sum()) + 23 * general, 8 * general
+    r, c = M.shape
+    passes = -(-r // BITTERM_ROW_BLOCK)
+    return (4 * BITTERM_WORD_OPS * c * passes
+            + BITTERM_GENERAL_OPS * int(((M != 0) & (M != 1)).sum())
+            + BITTERM_UNIT_OPS * int((M == 1).sum())
+            + BITTERM_FLAG_OPS * r * c)
 
 
 def bitterm_floor_ms(M: np.ndarray, L: int, sms: int, clock_hz: float
                      ) -> float:
-    """The least time of gf_bitterm's own instruction mix: shifts and
-    logic on the ALU pipe, multiply-adds on the FMA pipe, each at
-    INT32_PER_CLK_SM, and all of them at the issue rate."""
-    alu, imad = bitterm_mix(M)
-    lanes = L // 4
-    per_s = sms * clock_hz
-    return 1e3 * lanes * max(alu / (INT32_PER_CLK_SM * per_s),
-                             imad / (INT32_PER_CLK_SM * per_s),
-                             (alu + imad) / (ISSUE_PER_CLK_SM * per_s))
+    """The least time of gf_bitterm's own instruction mix on (c, L)
+    bytes: bitterm_mix for each of the L / 16 column groups on the ALU
+    pipe at INT32_PER_CLK_SM."""
+    return 1e3 * (L // 16) * bitterm_mix(M) / (INT32_PER_CLK_SM * sms
+                                               * clock_hz)
 
 
 def cuda_ms(fn, n: int, warm: int = 3) -> float:
@@ -243,13 +263,15 @@ def phase_build() -> None:
 
 def phase_kernels(dev: torch.device, rng: np.random.Generator,
                   clock_hz: float, lengths=LENGTHS, main_l: int = MAIN_L,
-                  n_time: int = 30) -> dict[str, dict]:
+                  n_time: int = 30
+                  ) -> tuple[dict[str, dict], dict[str, dict[str, float]]]:
     """Every kernel against its plain version (equal bytes, all columns)
     and the numpy oracle (oracle_columns); then CUDA-event times at the
-    main shape."""
+    TIMED_SHAPES.  Returns each kernel's row of the kernels line (its
+    numbers the main shape's) and realization -> label -> ms."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    results = {}
+    results, all_times = {}, {}
     mats = smoke_matrices(rng)
     for realization, (name, _ctr, plain_of, site) in KERNELS.items():
         err = 0
@@ -276,40 +298,52 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
                     raise AssertionError(
                         f"{name} {label} L={L}: differs from the oracle")
                 cases += 1
-        M = mats["reed_sol_van 3x8"]
-        op = ec_kernels.RegionMatmul(M, kernel=realization, device=dev)
-        data = torch.randint(0, 256, (M.shape[1], main_l),
-                             dtype=torch.uint8, device=dev, generator=gen)
-        x32 = data.view(torch.int32)
-        ms = cuda_ms(lambda: op.encode_lanes(x32), n_time)
+        say("kernels", f"{name}: {cases} cases equal to the plain version "
+                       "and the oracle")
+        times = {}
+        for label in TIMED_SHAPES:
+            M = mats[label]
+            op = ec_kernels.RegionMatmul(M, kernel=realization, device=dev)
+            data = torch.randint(0, 256, (M.shape[1], main_l),
+                                 dtype=torch.uint8, device=dev,
+                                 generator=gen)
+            x32 = data.view(torch.int32)
+            ms = times[label] = cuda_ms(lambda: op.encode_lanes(x32), n_time)
+            clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+            bound_ms, bound_by = bound(M, main_l)
+            t_bytes, t_ops = bound_parts(M, main_l)
+            nbytes = sum(M.shape) * main_l
+            say("kernels", f"{name}: {label} at {main_l >> 20} MiB/row: "
+                           f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
+                           f"bound {bound_ms:.4f} ms ({bound_by}; bytes "
+                           f"{t_bytes:.4f}, operations {t_ops:.4f}), "
+                           f"{ms / bound_ms:.2f}x the bound; after timing: "
+                           f"{clocks}")
+            if realization == "pallas":
+                floor = bitterm_floor_ms(
+                    M, main_l, torch.cuda.get_device_properties(
+                        dev).multi_processor_count, clock_hz)
+                say("kernels", f"{name}: {label}: its own instruction mix "
+                               f"({bitterm_mix(M)} ALU instructions per "
+                               f"16-byte column group) needs at least "
+                               f"{floor:.4f} ms at the top clock, "
+                               f"{ms / floor:.2f}x of it")
+        M = mats[TIMED_SHAPES[0]]
+        data = torch.randint(0, 256, (M.shape[1], main_l), dtype=torch.uint8,
+                             device=dev, generator=gen)
         plain = plain_of(M)
         plain_ms = cuda_ms(lambda: plain(data), max(5, n_time // 4), warm=1)
-        clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+        say("kernels", f"{name}: its plain version at {TIMED_SHAPES[0]}: "
+                       f"{plain_ms:.3f} ms")
+        del data, x32
         bound_ms, bound_by = bound(M, main_l)
-        t_bytes, t_ops = bound_parts(M, main_l)
-        nbytes = sum(M.shape) * main_l
-        say("kernels", f"{name}: {cases} cases equal to the plain version "
-                       f"and the oracle; 3x8 at {main_l >> 20} MiB/row: "
-                       f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
-                       f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                       f"({bound_by}; bytes {t_bytes:.4f}, operations "
-                       f"{t_ops:.4f}), {ms / bound_ms:.2f}x the bound; "
-                       f"after timing: {clocks}")
-        if realization == "pallas":
-            alu, imad = bitterm_mix(M)
-            floor = bitterm_floor_ms(
-                M, main_l, torch.cuda.get_device_properties(
-                    dev).multi_processor_count, clock_hz)
-            say("kernels", f"{name}: its own instruction mix ({alu} "
-                           f"shift/logic + {imad} multiply-add per lane) "
-                           f"needs at least {floor:.4f} ms at the top "
-                           f"clock, {ms / floor:.2f}x of it")
         results[realization] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": site, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
-    return results
+            "ms": times[TIMED_SHAPES[0]], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        all_times[realization] = times
+    return results, all_times
 
 
 def bit_codec(technique: str, k: int, **profile):
@@ -710,6 +744,32 @@ def check_main_path(counts: dict[str, int],
                     + json.dumps({s: p["picked"] for s, p in picks.items()}))
 
 
+def check_race_picks(times: dict[str, dict[str, float]],
+                     rng: np.random.Generator, margin: float = 0.05
+                     ) -> None:
+    """The race's picks at phase 3's shapes: where the main path raced a
+    TIMED_SHAPES matrix at MAIN_L's bucket, it must have pinned the
+    kernel that phase 3 timed faster, unless the two are within
+    ``margin`` of each other.  ``times``: realization -> label -> ms."""
+    picks = kernel_profiler().picks()
+    mats = smoke_matrices(rng)
+    for label in TIMED_SHAPES:
+        sig = MatrixErasureCode._pick_sig(mats[label],
+                                          _shape_bucket(MAIN_L))
+        t = {k: v[label] for k, v in times.items()}
+        fast = min(t, key=t.get)
+        slow = max(t, key=t.get)
+        picked = picks.get(sig, {}).get("picked")
+        gap = t[slow] / t[fast] - 1
+        say("launches", f"race at {label}, {sig}: picked {picked}; phase 3 "
+                        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+                        + f" ({100 * gap:.1f} % apart)")
+        if picked is not None and gap > margin and picked != fast:
+            raise AssertionError(f"the race pinned {picked} at {label}, "
+                                 f"where phase 3 timed {fast} "
+                                 f"{100 * gap:.1f} % faster")
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -744,12 +804,13 @@ def main() -> int:
     t0 = time.perf_counter()
     clock_hz = phase_device()
     phase_build()
-    kernels = phase_kernels(dev, rng, clock_hz)
+    kernels, times = phase_kernels(dev, rng, clock_hz)
     sched_row = phase_sched_xor(dev, rng)
     t_main = time.perf_counter()
     counts = main_path(dev, rng)
     profile_line(time.perf_counter() - t_main)
     check_main_path(counts)
+    check_race_picks(times, np.random.default_rng(SEED))
     for realization, row in kernels.items():
         row["launches"] = counts[KERNELS[realization][1]]
     before = profile_totals()

@@ -1,10 +1,16 @@
-// Variants of the port's K2 (gf_bitxor) and K3 (gf_sched_xor) kernels that
-// the library does not build, timed beside it by kernel_variants.py: what
-// bounds each kernel, and why K3's fixed knobs are what they are.
+// Variants of the port's K1 (gf_bitterm), K2 (gf_bitxor) and K3
+// (gf_sched_xor) kernels that the library does not build, timed beside it by
+// kernel_variants.py: what bounds each kernel, and why the library's fixed
+// settings are what they are.
 //
 // It includes the library's source and launches the library's own loops at
 // other template arguments, so a variant differs from the library's kernel
 // only where it says:
+// K1 (gf_bitterm_kernel): whole 16-entry lookups (two prmts and a select per
+//   nibble) instead of 8-entry ones and the bit-3/bit-7 terms, no branch on
+//   the coefficient flags, other counts of output rows in registers, of input
+//   rows loaded at once and of blocks per SM under __launch_bounds__, or one
+//   phase alone (the loads, the selectors).
 // K2 (gf_bitxor_kernel): 2 or 4 input rows in flight instead of 8, or one
 //   phase switched off (the input phase, the CSR walk, the transposes).
 // K3 (gf_sched_xor_kernel): 8 loads in flight, 256-thread blocks, a
@@ -70,6 +76,39 @@ int run_bitxor(const void* x, void* y, const void* ptr, const void* idx,
 }  // namespace
 
 extern "C" {
+
+// K1 variant, the arguments of gf_bitterm and a mode: 0-4 the library's
+// rows, batch and block size with mode 0 the library's setting, 1 16-entry
+// lookups, 2 the loads and stores alone (every input XORed into row 0), 3
+// the selectors alone (each input's Nibbles into row 0), 4 no flags (every
+// coefficient, 0 and 1 too, by its table); 5-13 the product at other
+// (rows in registers, input rows at once, block size, blocks per SM under
+// __launch_bounds__), 8 without flags.
+int variant_bitterm(const void* x, void* y, const void* coef, const void* tab,
+                    int r, int c, long long n4, int mode) {
+  const long long groups = n4 / 4;
+  constexpr int R = kRowBlock, B = kBitermBatch, T = kBitermThreads;
+#define RUN(...) \
+  launch_bitterm<__VA_ARGS__>(x, y, coef, tab, r, c, groups, nullptr)
+  switch (mode) {
+    case 0: return RUN(R, B, kSplit);
+    case 1: return RUN(R, B, kSelect16);
+    case 2: return RUN(R, B, kLoadsOnly);
+    case 3: return RUN(R, B, kSelectorsOnly);
+    case 4: return RUN(R, B, kSplit, T, 1, false);
+    case 5: return RUN(4, 8, kSplit, T, 3);
+    case 6: return RUN(4, 8, kSplit, T, 1);
+    case 7: return RUN(4, 4, kSplit, 128, 8);
+    case 8: return RUN(4, 4, kSplit, T, 4, false);
+    case 9: return RUN(4, 3, kSplit, T, 4);
+    case 10: return RUN(4, 2, kSplit, T, 5);
+    case 11: return RUN(4, 2, kSplit, T, 6);
+    case 12: return RUN(8, 2, kSplit, T, 4);
+    case 13: return RUN(8, 4, kSplit, T, 3);
+    default: return cudaErrorInvalidValue;
+  }
+#undef RUN
+}
 
 // K2 variant, the arguments of gf_bitxor and: mode 0 the product, 1 the
 // input phase only (each output row stored from the first 8 planes), 2 the

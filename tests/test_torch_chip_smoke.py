@@ -8,6 +8,7 @@ phases compare exactly (tolerance 0)."""
 
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -40,10 +41,16 @@ def test_bounds_count_the_main_matrix():
     kernels: the 8+3 encode at 8 MiB per row moves 88 MiB, which takes
     longer at 3.35 TB/s than its bit-matrix operations at the int8
     rate; a dense 32x32 matrix is bound by operations.  gf_bitterm's own
-    mix for the encode: ten coefficients are 1 (row 2 and the first
-    column, one XOR each), fourteen are general."""
+    ALU mix for the encode, per 16-byte column group (4 words of each row)
+    as the kernel's SASS issues it: the 8 input rows' selectors and masks,
+    4 x 9 each, in one block of output rows; fourteen general coefficients
+    at 25 (10 PRMT, 15 LOP3); ten coefficients 1 (row 2 and the first
+    column) at 4 XORs; 2 flag compares for each of the 24 coefficients.
+    The 8x8 decode holds its rows in two blocks of 4, so its selectors are
+    computed twice."""
     rng = np.random.default_rng(0)
-    M = chip_smoke.smoke_matrices(rng)["reed_sol_van 3x8"]
+    mats = chip_smoke.smoke_matrices(rng)
+    M = mats["reed_sol_van 3x8"]
     ms, by = chip_smoke.bound(M, 8 << 20)
     assert by == "bytes"
     assert ms == 11 * (8 << 20) / 3.35e12 * 1e3
@@ -51,10 +58,18 @@ def test_bounds_count_the_main_matrix():
     ms_w, by_w = chip_smoke.bound(wide, 8 << 20)
     assert by_w == "operations"
     assert ms_w > 64 * (8 << 20) / 3.35e12 * 1e3
-    assert chip_smoke.bitterm_mix(M) == (10 + 23 * 14, 8 * 14)
-    # 332 ALU operations per lane over 64 per clock on 132 SMs at 1.98 GHz
+    assert chip_smoke.bitterm_mix(M) == \
+        4 * 9 * 8 + 25 * 14 + 4 * 10 + 2 * 24 == 726
+    # 726 ALU instructions per column group over 64 per clock on 132 SMs
+    # at 1.98 GHz: under the 0.0275 ms byte bound
     floor = chip_smoke.bitterm_floor_ms(M, 8 << 20, 132, 1.98e9)
-    assert floor == 332 * (2 << 20) / (64 * 132 * 1.98e9) * 1e3
+    assert floor == (512 << 10) * 726 / (64 * 132 * 1.98e9) * 1e3
+    assert 0.022 < floor < ms
+    D = mats["decode 8x8 {1,4,9}"]
+    general = int(((D != 0) & (D != 1)).sum())
+    ones = int((D == 1).sum())
+    assert chip_smoke.bitterm_mix(D) == \
+        2 * 4 * 9 * 8 + 25 * general + 4 * ones + 2 * 64
 
 
 def test_oracle_columns_sample_every_pass():
@@ -67,3 +82,28 @@ def test_oracle_columns_sample_every_pass():
     assert np.all(cols < L) and len(np.unique(cols)) == len(cols)
     gaps = np.diff(np.unique(cols))
     assert gaps.max() <= L // 128
+
+
+def test_race_picks_must_follow_phase_3(monkeypatch):
+    """check_race_picks fails a run whose race pinned, at a phase-3
+    shape, the kernel phase 3 timed more than 5 % slower; a pick within
+    5 %, or a shape the path never raced, passes."""
+    from ceph_tpu_torch.ec.matrix_code import MatrixErasureCode
+
+    rng = np.random.default_rng(0)
+    M = chip_smoke.smoke_matrices(rng)["reed_sol_van 3x8"]
+    sig = MatrixErasureCode._pick_sig(M, chip_smoke.MAIN_L)
+    picks = {sig: {"picked": "bitxor"}}
+    monkeypatch.setattr(chip_smoke, "kernel_profiler",
+                        lambda: types.SimpleNamespace(picks=lambda: picks))
+    times = {"pallas": {"reed_sol_van 3x8": 0.043,
+                        "decode 8x8 {1,4,9}": 0.067},
+             "bitxor": {"reed_sol_van 3x8": 0.057,
+                        "decode 8x8 {1,4,9}": 0.083}}
+    with pytest.raises(AssertionError, match="pinned bitxor"):
+        chip_smoke.check_race_picks(times, rng)
+    picks[sig]["picked"] = "pallas"
+    chip_smoke.check_race_picks(times, rng)
+    times["bitxor"]["reed_sol_van 3x8"] = 0.044
+    picks[sig]["picked"] = "bitxor"
+    chip_smoke.check_race_picks(times, rng)

@@ -5,11 +5,16 @@ On a CPU tensor the port's wrappers run their kernels' plain versions:
 ``bitxor`` -> the scheduled-XOR program (kernel gf_bitxor on the card).
 They are held against the JAX RegionMatmul with its Pallas bodies in
 interpret mode, and against the numpy oracle gf256.encode_region.  The
-host halves of the CUDA kernels — K1's coefficient table and K2's
-bit-plane CSR with the bit order of its in-register transpose — are run
-here by emulators that follow the kernels' loops on numpy uint32 words.
+host halves of the CUDA kernels — K1's nibble table with the byte
+permutes (PTX prmt) that read it, and K2's bit-plane CSR with the bit
+order of its in-register transpose — are run here by emulators that
+follow the kernels' loops on numpy uint32 words.
 All comparisons are integer: tolerance 0 (byte-exact).
 """
+
+import functools
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +25,10 @@ from ceph_tpu.ops import gf256 as ref_gf
 from ceph_tpu_torch.ec.convert import schedule_from_arrays
 from ceph_tpu_torch.ops import ec_kernels as K
 from ceph_tpu_torch.ops import gf256
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 # small CPU tensors: one thread, so the suite's parallel workers do not
 # oversubscribe the cores
@@ -179,6 +188,26 @@ def test_kernel_supports_answers():
         K.RegionMatmul(M, kernel="bogus", device=CPU)
 
 
+def test_kernel_supports_pallas_needs_its_table_in_shared_memory(
+        monkeypatch):
+    """On the card ``pallas`` needs 33 bytes a coefficient (nibble_table's
+    32 and the flag byte) to fit what a block may opt in to."""
+    from ceph_tpu_torch.ops import cuda_lib
+
+    monkeypatch.setattr(cuda_lib, "smem_optin", lambda device: 33 * 64)
+    for shape, ok in (((8, 8), True), ((1, 64), True), ((8, 9), False),
+                      ((1, 65), False)):
+        M = np.full(shape, 7, dtype=np.uint8)
+        assert K.kernel_supports("pallas", M, device="cuda") is ok, shape
+    monkeypatch.setattr(cuda_lib, "smem_optin", lambda device: 232448)
+    assert K.kernel_supports("pallas", np.ones((32, 32), np.uint8),
+                             device="cuda")
+    assert K.kernel_supports("pallas", np.ones((1, 7043), np.uint8),
+                             device="cuda")
+    assert not K.kernel_supports("pallas", np.ones((1, 7044), np.uint8),
+                                 device="cuda")
+
+
 def test_kernel_supports_bitxor_needs_its_planes_in_shared_memory(
         monkeypatch):
     """On the card ``bitxor`` needs the (8c + 1) planes of a 32-thread
@@ -194,20 +223,159 @@ def test_kernel_supports_bitxor_needs_its_planes_in_shared_memory(
 
 # -- host halves of the CUDA kernels, run by emulators -------------------
 
-def _emulate_bitterm(M, x32):
-    """gf_bitterm's per-lane loop over its (coef, tab) staging."""
+def _prmt(a, b, s):
+    """PTX prmt.b32 in its default mode, on uint32 arrays: byte n of the
+    result is byte (s >> 4n) & 7 of the 8 bytes {b, a} (bytes 0-3 from
+    a), or, where bit 4n + 3 of s is set, that byte's top bit copied into
+    all 8 bits.  Only the low 16 bits of s are read."""
+    a, b, s = (np.asarray(t, dtype=np.uint64) for t in (a, b, s))
+    src = (b << np.uint64(32)) | a
+    out = np.zeros(np.broadcast(a, b, s).shape, dtype=np.uint64)
+    for n in range(4):
+        sel = (s >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (src >> (np.uint64(8) * (sel & np.uint64(7)))) & np.uint64(255)
+        sign = np.where(byte & np.uint64(128), np.uint64(255), np.uint64(0))
+        byte = np.where(sel & np.uint64(8), sign, byte)
+        out |= byte << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _nibbles(v):
+    """gf_bitterm's per-word selectors and masks (``nibbles`` in
+    csrc/gf_region.cu): (lo, hi, mlo, mhi)."""
+    v = np.asarray(v, dtype=np.uint32)
+    t = v & np.uint32(0x07070707)
+    h = (v >> np.uint32(4)) & np.uint32(0x07070707)
+    return (_prmt(t | (t >> np.uint32(4)), 0, 0x0020),
+            _prmt(h | (h >> np.uint32(4)), 0, 0x0020),
+            _prmt(v << np.uint32(4), 0, 0xBA98),
+            _prmt(v, 0, 0xBA98))
+
+
+def _emulate_bitterm(M, x32, combine="split"):
+    """gf_bitterm's loop over its staged coefficient flags and
+    nibble_table: each input word's Nibbles once, then per output row a
+    coefficient 1 as one XOR, 0 skipped, and any other by the kernel's
+    combine: ``split`` (the library's: 8-entry lookups of lo[0..7] and
+    hi[0..7] and the bit-3 / bit-7 terms from lo[8] and hi[8]) or
+    ``select16`` (whole 16-entry lookups, two prmts and a select per
+    nibble)."""
     coef = np.asarray(M, dtype=np.uint8)
-    tab = K.bitterm_table(M).astype(np.uint32)
-    x = x32.astype(np.uint32)
-    y = np.zeros((coef.shape[0], x.shape[1]), dtype=np.uint32)
-    for i in range(coef.shape[0]):
-        for j in range(coef.shape[1]):
+    tab = K.nibble_table(M).view("<u4")  # (r, c, 8): lo words, hi words
+    x = np.asarray(x32).astype(np.uint32)
+    r, c = coef.shape
+    y = np.zeros((r, x.shape[1]), dtype=np.uint32)
+    for j in range(c):
+        lo_s, hi_s, mlo, mhi = _nibbles(x[j])
+        for i in range(r):
             if coef[i, j] == 1:
                 y[i] ^= x[j]
             elif coef[i, j]:
-                for s in range(8):
-                    y[i] ^= ((x[j] >> s) & 0x01010101) * tab[i, j, s]
+                lo, hi = tab[i, j, :4], tab[i, j, 4:]
+                if combine == "select16":
+                    l0 = _prmt(lo[0], lo[1], lo_s)
+                    l1 = _prmt(lo[2], lo[3], lo_s)
+                    h0 = _prmt(hi[0], hi[1], hi_s)
+                    h1 = _prmt(hi[2], hi[3], hi_s)
+                    y[i] ^= ((l0 & ~mlo) | (l1 & mlo)) ^ \
+                        ((h0 & ~mhi) | (h1 & mhi))
+                else:
+                    b8, b128 = _prmt(lo[2], 0, 0), _prmt(hi[2], 0, 0)
+                    y[i] ^= (_prmt(lo[0], lo[1], lo_s)
+                             ^ _prmt(hi[0], hi[1], hi_s)
+                             ^ (mlo & b8) ^ (mhi & b128))
     return y
+
+
+def _bitterm_matrices():
+    """chip_smoke's matrices, and two whose coefficients are mostly 0 and
+    1 beside 0x80, 0xFF and 0x08."""
+    mats = dict(chip_smoke.smoke_matrices(np.random.default_rng(5)))
+    mats["0/1 3x3"] = np.array([[0, 1, 0x80], [1, 0, 0xFF], [0, 0, 0]],
+                               dtype=np.uint8)
+    mats["0/1 2x5"] = np.array([[1, 1, 0, 0x08, 1], [0, 0x80, 1, 1, 0]],
+                               dtype=np.uint8)
+    return mats
+
+
+BITTERM_MATS = _bitterm_matrices()
+#: input bytes: random, and constant bytes with bits 3 and 7 (the
+#: sign-replicate masks) on and off
+BITTERM_DATA = ("random", 0x80, 0xFF, 0x08, 0x77)
+
+
+def _bitterm_data(M, kind, L=512):
+    if kind == "random":
+        return np.random.default_rng(M.size).integers(
+            0, 256, (M.shape[1], L), dtype=np.uint8)
+    return np.full((M.shape[1], L), kind, dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_xla(name):
+    """The JAX RegionMatmul(kernel="xla") of a BITTERM_MATS matrix, one
+    per matrix so that every input kind reuses its compiled graph."""
+    return ref_k.RegionMatmul(BITTERM_MATS[name], kernel="xla")
+
+
+@pytest.mark.parametrize("combine", ["split", "select16"])
+@pytest.mark.parametrize("kind", BITTERM_DATA)
+@pytest.mark.parametrize("name", list(BITTERM_MATS))
+def test_bitterm_emulator_matches_oracle_and_jax(name, kind, combine):
+    """gf_bitterm's steps on numpy words (prmt with sign-replicate, the
+    selector packing and masks, nibble_table, the combine) equal
+    gf256.encode_region and the JAX RegionMatmul's xla form byte for
+    byte, on every chip_smoke matrix (c up to 32) and on inputs whose
+    bytes set bits 3 and 7 (exact)."""
+    M = BITTERM_MATS[name]
+    data = _bitterm_data(M, kind)
+    got = _emulate_bitterm(M, data.view("<u4"), combine).view(np.uint8)
+    want = gf256.encode_region(M, data)
+    assert np.array_equal(got, want)
+    assert np.array_equal(want, np.asarray(_jax_xla(name)(data)))
+
+
+def test_prmt_follows_ptx_default_mode():
+    """The emulator's prmt: index bytes of {b, a}, sign-replicate where
+    the selector nibble's top bit is set, selector bits above 15
+    ignored."""
+    a, b = 0x83_02_81_00, 0x07_86_05_04
+    assert _prmt(a, b, 0x3210) == a
+    assert _prmt(a, b, 0x7654) == b
+    assert _prmt(a, b, 0x0246) == 0x00_02_04_86
+    assert _prmt(a, b, 0xBA98) == 0xFF_00_FF_00
+    assert _prmt(a, b, 0xFFFF_1111) == 0x81_81_81_81
+    assert _prmt(a, 0, 0x0000) == 0x00_00_00_00
+    assert _prmt(0xAB, 0, 0x0000) == 0xAB_AB_AB_AB
+
+
+def test_nibble_selectors_pack_each_byte():
+    """Nibble k of the lo / hi selectors is bits 0-2 / 4-6 of byte k,
+    and byte k of the masks is 0xFF where bit 3 / 7 of byte k is set."""
+    v = np.random.default_rng(9).integers(0, 256, (1000, 4), dtype=np.uint8)
+    lo, hi, mlo, mhi = _nibbles(v.view("<u4")[:, 0])
+    for k in range(4):
+        nib = lambda w: (w >> np.uint32(4 * k)) & np.uint32(15)
+        byte = lambda w: (w >> np.uint32(8 * k)) & np.uint32(255)
+        assert np.array_equal(nib(lo), v[:, k] & 7)
+        assert np.array_equal(nib(hi), (v[:, k] >> 4) & 7)
+        assert np.array_equal(byte(mlo), np.where(v[:, k] & 8, 255, 0))
+        assert np.array_equal(byte(mhi), np.where(v[:, k] & 128, 255, 0))
+
+
+def test_nibble_table_is_the_products():
+    """nibble_table(M)[i, j] is lo[n] = M[i,j] * n then hi[n] =
+    M[i,j] * (n << 4), n < 16, over GF(2^8)."""
+    M = np.random.default_rng(11).integers(0, 256, (5, 7), dtype=np.uint8)
+    M[0, 0], M[0, 1] = 0, 1
+    tab = K.nibble_table(M)
+    assert tab.shape == (5, 7, 32) and tab.dtype == np.uint8
+    for i in range(5):
+        for j in range(7):
+            for n in range(16):
+                assert tab[i, j, n] == gf256.gf_mul(int(M[i, j]), n)
+                assert tab[i, j, 16 + n] == gf256.gf_mul(int(M[i, j]),
+                                                          n << 4)
 
 
 def _bitslice(words):
@@ -282,7 +450,7 @@ def test_bitslice_bit_order_and_round_trip():
 
 @pytest.mark.parametrize("name", list(INTERP))
 def test_kernel_host_halves_compute_the_product(name):
-    """K1's table and K2's plan, run the way the kernels run them, equal
+    """K1's nibble table and K2's plan, run the way the kernels run them, equal
     the oracle and the JAX RegionMatmul's bitxor body in interpret mode
     (exact)."""
     M = INTERP[name]

@@ -167,6 +167,55 @@ def test_pinned_and_raced_kernels_on_cpu(kernel):
     assert set(raced.kernel_picks().values()) <= {"pallas", "bitxor"}
 
 
+@pytest.mark.parametrize("times, winner", [
+    # the lower median picks pallas (5 < 6) where the mean would not
+    ({"pallas": [1e-3, 30e-3, 5e-3], "bitxor": [6e-3, 6e-3, 6e-3]},
+     "pallas"),
+    # and bitxor (7 < 8) where the least time would not
+    ({"pallas": [1e-3, 8e-3, 9e-3], "bitxor": [7e-3, 7e-3, 7e-3]},
+     "bitxor"),
+])
+def test_race_pins_the_lower_median(monkeypatch, times, winner):
+    """A forced race on the CPU, with the launch timer stubbed to give
+    fixed per-kernel times: each candidate launches once untimed and
+    RACE_TIMED_LAUNCHES = 3 times timed, the lower median of the three
+    decides the pin, 4 launches a candidate are booked, and the output
+    is the JAX ``tpu`` plugin's bytes."""
+    from ceph_tpu_torch.utils.perf import kernel_profiler
+
+    codec = ec.factory("tpu", {"k": "8", "m": "3", "device": "cpu",
+                               "kernel_race": "on"})
+    assert codec.RACE_TIMED_LAUNCHES == 3
+    fed = {k: iter(v) for k, v in times.items()}
+    real_timed = codec._timed_launch
+
+    def timed(op, rows, sig):
+        out, _dt = real_timed(op, rows, sig)
+        return out, next(fed[op.kernel])
+
+    monkeypatch.setattr(codec, "_timed_launch", timed)
+    booked = []
+    prof = kernel_profiler()
+    real_note = prof.note_pick
+
+    def note_pick(sig, kernel, **kw):
+        booked.append((kernel, kw.get("race_launches")))
+        return real_note(sig, kernel, **kw)
+
+    monkeypatch.setattr(prof, "note_pick", note_pick)
+    obj = RNG.integers(0, 256, 8 * 512, dtype=np.uint8).tobytes()
+    before = ec_kernels.launch_counts()["plain"]
+    got = codec.encode(obj)
+    assert ec_kernels.launch_counts()["plain"] - before == 8
+    assert booked == [(winner, 8)]
+    assert all(next(it, None) is None for it in fed.values())
+    assert set(codec.kernel_picks().values()) == {winner}
+    want = ref_ec.factory("tpu", {"k": "8", "m": "3",
+                                  "backend": "jax"}).encode(obj)
+    for i in want:
+        assert np.array_equal(got[i], want[i]), i
+
+
 def test_unsupported_pin_books_a_skip():
     codec = ec.factory("tpu", {"k": "8", "m": "3", "device": "cpu",
                                "kernel": "mxu"})
