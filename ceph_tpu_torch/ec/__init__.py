@@ -1,15 +1,22 @@
-"""Erasure-code engine of the port: plugin interface, registry, and the
+"""Erasure-code engine of the port: plugin interface, registry, the
 builtin plugins ``tpu``, ``jerasure`` (matrix and bit-matrix techniques),
-``isa`` and ``xor`` (the counterpart of ``ceph_tpu.ec``; the batcher and
-the clay, lrc and shec plugins come with later slices).  The registry
-imports ``ceph_tpu_torch.ec.plugin_<name>`` at first use."""
+``isa`` and ``xor``, and the write path around them: the cross-op
+ECBatcher (encode, degraded decode, folded verify), the DeviceArena and
+the CrcVerifier (the counterpart of ``ceph_tpu.ec``; the clay, lrc and
+shec plugins come with later slices).  The registry imports
+``ceph_tpu_torch.ec.plugin_<name>`` at first use."""
 
+from .arena import DeviceArena
+from .batcher import ECBatcher
 from .interface import (ChunkMap, ErasureCode, ErasureCodeError, Flags,
                         Profile, EC_ALIGN_SIZE, SIMD_ALIGN)
 from .registry import factory, preload, register, registered
 
+from .verify import CrcVerifier, verifier
+
 __all__ = [
-    "ChunkMap", "ErasureCode", "ErasureCodeError", "Flags",
+    "ChunkMap", "CrcVerifier", "DeviceArena", "ECBatcher", "ErasureCode",
+    "ErasureCodeError", "Flags",
     "Profile", "EC_ALIGN_SIZE", "SIMD_ALIGN", "factory", "preload",
-    "register", "registered",
+    "register", "registered", "verifier",
 ]

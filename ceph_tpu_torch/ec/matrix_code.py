@@ -9,7 +9,18 @@ ErasureCodeIsaTableCache LRU, ErasureCodeIsa.cc:513-563).
 
 The device is the profile key ``device`` (default ``cuda``).  A codec
 asked for ``cuda`` on a process with no card raises at construction; it
-never carries on on the CPU.
+never carries on on the CPU.  The profile key ``shard`` (the reference's
+device fan-out) resolves to one device; a fan-out above 1 raises until
+the multi-GPU slice is ported.
+
+Checksummed writes (``encode_chunks_with_csums`` and the batcher's fused
+flush) run ``_csum_op``: the region kernel pinned for the encode matrix
+writes the parity beside the data, then the CRC32C kernel digests every
+chunk (models/stripe_codec.encode_csum_graph).  Nothing is compiled per
+shape or matrix — the one ``nvcc`` build is the only compile — so the
+op is ready at once on every device: the reference's background warm
+(``csum_warm``, ``_csum_ready``) has no counterpart, and the profile key
+``csum_warm`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..ops import ec_kernels, gf256
+from ..ops import checksum, ec_kernels, gf256, native
 from ..utils.perf import kernel_profiler
 from .interface import ChunkMap, ErasureCode, ErasureCodeError, Flags
 
@@ -47,6 +58,18 @@ def _pick_backend(name: str) -> str:
     if name not in ("numpy", "torch"):
         raise ErasureCodeError(f"unknown backend {name!r}")
     return name
+
+
+def _as_host(x) -> np.ndarray:
+    """Host uint8 bytes of a numpy array or a tensor on any device."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x, dtype=np.uint8)
+
+
+def _host_csums(rows) -> np.ndarray:
+    """Standard CRC32C of every row, on the host (native library)."""
+    return np.array([native.crc32c(row) for row in rows], dtype=np.uint32)
 
 
 def resolve_device(name) -> torch.device:
@@ -79,6 +102,7 @@ class MatrixErasureCode(ErasureCode):
         self._backend = _pick_backend(self.profile.get("backend", "auto"))
         self.device = (resolve_device(self.profile.get("device", "cuda"))
                        if self._backend == "torch" else None)
+        self.shard_devices()  # a fan-out above 1 raises here
         # kernel realization for torch-backend region math: profile key
         # ``kernel`` pins one of ops/ec_kernels.KERNELS, ``auto``
         # (default) lets the per-signature tuner decide — racing the
@@ -265,6 +289,65 @@ class MatrixErasureCode(ErasureCode):
                     for (mb, shape, bucket), k
                     in self._kernel_picks.items()}
 
+    def shard_devices(self) -> int:
+        """Resolved device fan-out for folded launches: 1.  Profile key
+        ``shard``: ``off`` (``false``, ``no``, ``0``) means one device;
+        ``auto`` (or unset; ``on``, ``true``, ``yes``) means every card,
+        as the reference engages every accelerator, and one device on
+        the CPU or the numpy backend; an integer N means N devices.  A
+        fan-out above 1 raises ErasureCodeError — the multi-GPU fan-out
+        is not ported, and such a pool is never served by one device
+        without saying so (``shard=off`` asks for one)."""
+        mode = str(self.profile.get("shard", "auto")).lower()
+        if mode in ("off", "false", "no", "0"):
+            return 1
+        if mode in ("auto", "on", "true", "yes"):
+            device = getattr(self, "device", None)
+            on_card = device is not None and device.type == "cuda"
+            n = torch.cuda.device_count() if on_card else 1
+        else:
+            try:
+                n = int(mode)
+            except ValueError as e:
+                raise ErasureCodeError(f"bad shard {mode!r}") from e
+        if n > 1:
+            raise ErasureCodeError(
+                f"shard={mode} asks for {n} devices: the multi-GPU fan-out "
+                "is not ported (shard=off serves the pool from one)")
+        return 1
+
+    # -- batcher fold protocol ---------------------------------------------
+    # The ECBatcher folds concurrent same-signature ops into one
+    # (k, sum L) launch.  These hooks tell it HOW this codec folds:
+    #
+    # - fold_sig(): the codec-identity component of every flush
+    #   signature (two codecs sharing a matrix's bytes+shape need not
+    #   share decode semantics).
+    # - encode_fold_kind()/decode_fold_kind(): "plain" = the op is one
+    #   region matmul against self.matrix / a decode-matrix product,
+    #   None = not foldable (pass-through).  The reference's "subchunk"
+    #   kind (CLAY's coupled planes) comes with the wide-code slice.
+    # - fold_rows(): which survivor rows a folded "plain" decode launch
+    #   consumes, in stack order — the first k sorted survivors (every
+    #   k-subset of an MDS code decodes).  None = this erasure cannot
+    #   fold (pass-through surfaces the codec's own error per op).
+
+    def fold_sig(self) -> tuple:
+        return ("mat",)
+
+    def encode_fold_kind(self) -> str | None:
+        return ("plain" if type(self).encode_chunks
+                is MatrixErasureCode.encode_chunks else None)
+
+    def decode_fold_kind(self) -> str | None:
+        return ("plain" if type(self).decode_chunks
+                is MatrixErasureCode.decode_chunks else None)
+
+    def fold_rows(self, want: Sequence[int],
+                  avail: Sequence[int]) -> list[int] | None:
+        rows = [i for i in avail if i < self.chunk_count][: self.k]
+        return rows if len(rows) == self.k else None
+
     def get_flags(self) -> Flags:
         return (Flags.PARITY_DELTA_OPTIMIZATION | Flags.ZERO_PADDING |
                 Flags.OPTIMIZED_SUPPORTED | Flags.PARTIAL_READ_OPTIMIZATION |
@@ -310,8 +393,10 @@ class MatrixErasureCode(ErasureCode):
         out = op(rows)
         if events is not None:
             events[1].record(torch.cuda.current_stream(self.device))
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
+        # the fused encode+CRC op returns (parity, csums)
+        first = out[0] if isinstance(out, tuple) else out
+        if first.device.type == "cuda":
+            torch.cuda.synchronize(first.device)
         dt = time.perf_counter() - t0
         key = (sig, tuple(rows.shape))
         with self._cache_lock:
@@ -348,6 +433,16 @@ class MatrixErasureCode(ErasureCode):
         out = dev.cpu().numpy()
         kernel_profiler().note("sync", sig, time.perf_counter() - t0)
         return out
+
+    def host_sync_bulk(self, devs, sig: str | None = None) -> list:
+        """Materialize SEVERAL device results as ONE metered
+        device->host copy event (utils/staging.fetch_recorded): the
+        flush-plane contract — a folded launch's outputs (parity, or
+        parity + csums, or a decode's stacked rows) leave the device
+        together, booked as one ``ec_stage_d2h`` copy.  Numpy inputs
+        pass through untimed, same as host_sync."""
+        from ..utils import staging
+        return staging.fetch_recorded(devs, sig=sig)
 
     def decode_folded_device(self, want: Sequence[int],
                              avail: Sequence[int], stacked):
@@ -399,11 +494,108 @@ class MatrixErasureCode(ErasureCode):
         return self.host_sync(self._matmul_device(M, rows))
 
     def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:
-        data_chunks = np.ascontiguousarray(data_chunks, dtype=np.uint8)
+        data_chunks = _as_host(data_chunks)
         if data_chunks.shape[0] != self.k:
             raise ErasureCodeError(
                 f"expected {self.k} data chunks, got {data_chunks.shape[0]}")
         return self._matmul(self.matrix, data_chunks)
+
+    def encode_chunks_with_csums(
+            self, data_chunks: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(parity, per-chunk CRC32C over data+parity rows) — on the
+        torch backend both come out of the fused op (_csum_op: the region
+        kernel, then the CRC32C kernel over the stack), or, for a length
+        that is not a whole number of words, of the same two kernels
+        launched apart; the numpy backend, and subclasses that own their
+        parity math, compute the same csums on the host so callers share
+        one API."""
+        data_chunks = _as_host(data_chunks)
+        nbytes = int(data_chunks.shape[-1])
+        plain = type(self).encode_chunks is MatrixErasureCode.encode_chunks
+        if not plain:
+            # a subclass owns the parity math: fuse nothing, delegate —
+            # csums ride a host sweep over whatever it produced
+            parity = self.encode_chunks(data_chunks)
+            return parity, _host_csums(
+                np.concatenate([data_chunks, parity], axis=0))
+        if self._backend == "torch" and data_chunks.shape[0] != self.k:
+            raise ErasureCodeError(f"expected {self.k} data chunks, "
+                                   f"got {data_chunks.shape[0]}")
+        if self._backend == "torch" and nbytes % 4 == 0 and nbytes >= 4:
+            op = self._csum_op_if_ready(nbytes)
+            parity, csums = self._profiled_launch(
+                op, data_chunks,
+                f"csum/{self.m}x{self.k}/L{nbytes}x{nbytes}")
+            return self.host_sync(parity), self.host_sync(csums)[:, 0]
+        if self._backend == "torch" and nbytes:
+            # a length the fused op does not take: the region kernel,
+            # then G1 over the (k+m, L) stack on the same device
+            data = torch.from_numpy(data_chunks).to(self.device)
+            parity = self._matmul_device(self.matrix, data)
+            csums = checksum.row_csums(torch.cat([data, parity]))
+            return self.host_sync(parity), self.host_sync(csums)
+        parity = self._matmul(self.matrix, data_chunks)
+        return parity, _host_csums(
+            np.concatenate([data_chunks, parity], axis=0))
+
+    def _csum_op(self, nbytes: int):
+        """Fused encode+CRC32C op for chunk length ``nbytes``:
+        fn((k, batch*nbytes) data, numpy or a tensor) -> (parity
+        (m, batch*nbytes), csums (k+m, batch) uint32) as tensors on the
+        codec's device — parity and every per-chunk digest leave the
+        device together.  Cached per (matrix, nbytes) beside the region
+        ops; the region kernel is resolved per launch width
+        (_csum_graph_kernel) and its graph cached per kernel."""
+        from ..models.stripe_codec import StripeCodec
+
+        graphs: dict[str, object] = {}
+        lock = threading.Lock()
+
+        def op(data):
+            if isinstance(data, np.ndarray):
+                data = torch.from_numpy(np.ascontiguousarray(
+                    data, dtype=np.uint8)).to(self.device)
+            kern = self._csum_graph_kernel(data)
+            with lock:
+                fn = graphs.get(kern)
+                if fn is None:
+                    codec = StripeCodec.__new__(StripeCodec)
+                    codec.k, codec.m = self.k, self.m
+                    codec.matrix = self.matrix
+                    fn = graphs[kern] = codec.encode_csum_graph(
+                        nbytes, kernel=kern)
+            return fn(data)
+
+        return self._op_cached(self._csum_key(nbytes), lambda: op)
+
+    def _csum_graph_kernel(self, data) -> str:
+        """Region kernel the fused op runs for the encode matrix at
+        ``data``'s width (``data``: the k data rows, or the (k+m, N)
+        stack they head): the kernel pinned for (matrix, width bucket)
+        — an explicit profile pin, an earlier race, or, for an unpinned
+        signature on the card, a race run now on the data rows (its
+        parity is dropped; the fused op launches the winner).  On the CPU
+        the pin is the plain version."""
+        M, L = self.matrix, int(data.shape[-1])
+        pick = self._kernel_pick(M, L)
+        if pick is None:
+            self._race_matmul(M, data[: self.k])
+            pick = self._kernel_pick(M, L)
+        return pick
+
+    def _csum_key(self, nbytes: int) -> bytes:
+        """Op-LRU key of the fused encode+CRC op for this chunk length —
+        ONE definition."""
+        return b"csum:" + self.matrix.tobytes() + nbytes.to_bytes(8,
+                                                                  "little")
+
+    def _csum_op_if_ready(self, nbytes: int):
+        """The fused op for chunk length ``nbytes``, at once on every
+        device: the port compiles nothing per shape, so there is nothing
+        to warm (the reference returns it at once only on a TPU and warms
+        it in the background elsewhere)."""
+        return self._csum_op(nbytes)
 
     def _get_decode_matrix(self, available: Sequence[int]) -> np.ndarray:
         key = tuple(available[: self.k])

@@ -10,8 +10,10 @@ on a CUDA tensor and run their plain versions on a CPU tensor.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops import gf256
+from ..ops.checksum import chunk_csums, crc_plan
 from ..ops.ec_kernels import region_fn
 
 
@@ -55,3 +57,38 @@ class StripeCodec:
         signature, ErasureCodeIsa.cc:513-563)."""
         D = gf256.decode_matrix(self.matrix, self.k, available)
         return region_fn(D)
+
+    def encode_csum_graph(self, chunk_bytes: int, kernel: str = "auto"):
+        """fn(data (k, N) uint8 tensor, N = batch * chunk_bytes) ->
+        (parity (m, N), csums (k + m, batch) uint32) on data's device:
+        parity AND the standard CRC32C of every chunk, data and parity
+        (the Checksummer-rides-the-batch north star; ref
+        src/common/Checksummer.h:13, BlueStore per-blob csum
+        BlueStore.cc:6080-6086).
+
+        Two launches: the region kernel (``kernel``, as encode_graph)
+        writes the parity into rows k..k+m of one (k + m, N) buffer
+        whose first k rows are the data (RegionMatmul's ``out=``), then
+        G1 (ops/checksum.crc32c_chunks) digests the whole stack.  ``data``
+        may be that (k + m, N) buffer already — the caller's scratch,
+        data rows first; its parity rows are overwritten and no copy is
+        made.  A single pass, K1 with a CRC epilogue, is a later
+        redesign."""
+        crc_plan(chunk_bytes)  # the length check, before any launch
+        enc = region_fn(self.matrix, kernel)
+        k, m = self.k, self.m
+
+        def fn(data):
+            if data.shape[0] == k + m:
+                stack = data
+            elif data.shape[0] == k:
+                stack = torch.empty((k + m, data.shape[1]),
+                                    dtype=torch.uint8, device=data.device)
+                stack[:k] = data
+            else:
+                raise ValueError(f"expected {k} or {k + m} rows, got "
+                                 f"{data.shape[0]}")
+            enc(stack[:k], out=stack[k:])
+            return stack[k:], chunk_csums(stack, chunk_bytes)
+
+        return fn

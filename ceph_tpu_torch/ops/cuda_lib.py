@@ -1,10 +1,12 @@
-"""Build and load the port's hand-written CUDA kernels (csrc/gf_region.cu).
+"""Build and load the port's hand-written CUDA kernels (``csrc/``: the
+region kernels of gf_region.cu and the CRC32C kernel of crc32c.cu).
 
-The source compiles with ``nvcc`` for Hopper (``sm_90a``) into
-``build/libgf_region.so``, a shared library with a plain C interface that
-ctypes loads.  The build happens at first use, under a lock (a thread
-lock and a file lock, so concurrent processes of one checkout build
-once), and again whenever a source in ``csrc/`` is newer than the
+Each source compiles with its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and one more ``nvcc`` links the objects into
+``build/libceph_tpu_torch.so``, a shared library with a plain C interface
+that ctypes loads.  The build happens at first use, under a lock (a
+thread lock and a file lock, so concurrent processes of one checkout
+build once), and again whenever a source in ``csrc/`` is newer than the
 library — the same staleness rule as the JAX package's ``ops/native.py``
 applies to ``native/``.
 
@@ -26,10 +28,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 
-SOURCE = "gf_region"
+#: the CUDA sources of the library, csrc/<name>.cu
+SOURCES = ("gf_region", "crc32c")
+LIBRARY = "ceph_tpu_torch"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of every compile; NVCC_FLAGS builds a shared library in one step
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = COMPILE_FLAGS + ("-shared",)
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -44,6 +50,8 @@ _SIGNATURES = {
     "gf_bitterm": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
     "gf_bitxor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
     "gf_sched_xor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
+    "crc32c_chunks": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
+                           ctypes.c_uint32, _P]),
     "gf_smem_optin": (_I, [ctypes.POINTER(_I)]),
     "gf_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -58,7 +66,7 @@ class CudaKernelError(RuntimeError):
 
 
 def so_path() -> str:
-    return os.path.join(BUILD, f"lib{SOURCE}.so")
+    return os.path.join(BUILD, f"lib{LIBRARY}.so")
 
 
 def nvcc() -> str:
@@ -79,8 +87,8 @@ def _stale() -> bool:
 
 
 def build() -> float | None:
-    """Compile the source if it is stale; returns the seconds the build
-    took, or None when the library was up to date.  Raises
+    """Compile the sources if the library is stale; returns the seconds
+    the build took, or None when the library was up to date.  Raises
     CudaBuildError."""
     with _LOCK:
         os.makedirs(BUILD, exist_ok=True)
@@ -89,17 +97,33 @@ def build() -> float | None:
             if not _stale():
                 return None
             t0 = time.perf_counter()
-            tmp = so_path() + f".tmp{os.getpid()}"
-            p = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(CSRC, f"{SOURCE}.cu")],
-                capture_output=True, text=True)
-            if p.returncode:
-                raise CudaBuildError(f"nvcc exit {p.returncode}\n"
-                                     f"{p.stdout}{p.stderr}")
-            os.replace(tmp, so_path())
+            tag = f".tmp{os.getpid()}"
+            # nvcc takes a file's kind from its suffix: objects end in .o
+            objs = [os.path.join(BUILD, f"{src}{tag}.o") for src in SOURCES]
+            procs = [subprocess.Popen(
+                [nvcc(), *COMPILE_FLAGS, "-c", "-o", obj,
+                 os.path.join(CSRC, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            try:
+                for src, p, log in zip(SOURCES, procs, logs):
+                    if p.returncode:
+                        raise CudaBuildError(
+                            f"nvcc exit {p.returncode} on {src}.cu\n{log}")
+                tmp = so_path() + tag
+                p = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                                   capture_output=True, text=True)
+                if p.returncode:
+                    raise CudaBuildError(f"nvcc link exit {p.returncode}\n"
+                                         f"{p.stdout}{p.stderr}")
+                os.replace(tmp, so_path())
+            finally:
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             BUILD_LOG.update(seconds=time.perf_counter() - t0,
-                             ptxas=(p.stdout + p.stderr).strip())
+                             ptxas="\n".join(logs).strip())
             return BUILD_LOG["seconds"]
 
 

@@ -50,7 +50,8 @@ multiplies and left shifts wrap exactly like uint32 ones.
 A wrapper takes its plain version only because the tensor it was given
 lies on the CPU; on a CUDA tensor it launches its kernel or raises.
 Launches are counted in LAUNCHES (``gf_bitterm``, ``gf_bitxor``,
-``gf_sched_xor``, and ``plain`` for every run of a plain version).
+``gf_sched_xor``, the CRC32C kernel ``crc32c_chunks`` of ops/checksum.py,
+and ``plain`` for every run of a plain version).
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ KERNELS = ("xla", "pallas", "mxu", "bitxor")
 #: launch counters: each wrapper adds one where it launches its kernel,
 #: and every run of a plain version adds one to ``plain``
 LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "gf_sched_xor": 0,
-            "plain": 0}
+            "crc32c_chunks": 0, "plain": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -194,18 +195,42 @@ def _check_lanes(x32: torch.Tensor, rows: int, what: str) -> None:
                          f"{tuple(x32.shape)}")
 
 
-def gf_bitterm_lanes(x32: torch.Tensor, terms_all, table=None
-                     ) -> torch.Tensor:
+def _out_lanes(out, r: int, x32: torch.Tensor, what: str) -> torch.Tensor:
+    """The (r, n4) int32 output of a kernel launch on x32's device: a new
+    tensor, or the caller's ``out``, which must be contiguous and 16-byte
+    aligned there (a kernel writes it whole)."""
+    n4 = x32.shape[1]
+    if out is None:
+        return torch.empty((r, n4), dtype=torch.int32, device=x32.device)
+    if (out.dtype != torch.int32 or tuple(out.shape) != (r, n4)
+            or out.device != x32.device or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{what}: out must be a contiguous, 16-byte "
+                         f"aligned ({r}, {n4}) int32 tensor on {x32.device}")
+    return out
+
+
+def _into(y32: torch.Tensor, out) -> torch.Tensor:
+    """A plain version's lanes, copied into ``out`` when one is given."""
+    if out is None:
+        return y32
+    out.copy_(y32)
+    return out
+
+
+def gf_bitterm_lanes(x32: torch.Tensor, terms_all, table=None, *,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: (c, n4) 32-bit lanes -> (r, n4) int32 lanes.
 
     On a CPU tensor it runs the plain version over ``terms_all``
     (_terms).  On a CUDA tensor it launches ``gf_bitterm`` with
     ``table`` = (coef (r, c) uint8, tab (r, c, 32) uint8, the
     nibble_table) resident on the same device, and needs n4 % 4 == 0 and
-    16-byte alignment."""
+    16-byte alignment.  ``out`` (r, n4) int32, when given, receives the
+    lanes (_out_lanes)."""
     r = len(terms_all)
     if x32.device.type == "cpu":
-        return _rows_op(x32.view(torch.int32), terms_all)
+        return _into(_rows_op(x32.view(torch.int32), terms_all), out)
     if x32.device.type != "cuda":
         raise ValueError(f"gf_bitterm: unsupported device {x32.device}")
     if table is None:
@@ -220,7 +245,7 @@ def gf_bitterm_lanes(x32: torch.Tensor, terms_all, table=None
                          "lanes with n4 % 4 == 0 and tables on the "
                          "same device")
     from . import cuda_lib
-    y32 = torch.empty((r, n4), dtype=torch.int32, device=x32.device)
+    y32 = _out_lanes(out, r, x32, "gf_bitterm")
     with torch.cuda.device(x32.device):
         stream = torch.cuda.current_stream(x32.device).cuda_stream
         err = cuda_lib.lib().gf_bitterm(
@@ -348,16 +373,17 @@ def bitxor_plan(M: np.ndarray) -> BitxorPlan:
     return _cached_plan(M.tobytes(), M.shape)
 
 
-def gf_bitxor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None
-                    ) -> torch.Tensor:
+def gf_bitxor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None, *,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """K2 wrapper: (c, n4) 32-bit lanes -> (r, n4) int32 lanes.
 
     On a CPU tensor it runs the plain version of ``sched``.  On a CUDA
     tensor it launches ``gf_bitxor`` with ``plan`` = (ptr tensor, idx
     tensor, BitxorPlan), the tensors on the same device, and needs
-    n4 % 8 == 0 and 16-byte alignment."""
+    n4 % 8 == 0 and 16-byte alignment.  ``out`` (r, n4) int32, when
+    given, receives the lanes (_out_lanes)."""
     if x32.device.type == "cpu":
-        return _bitxor_rows(x32.view(torch.int32), sched)
+        return _into(_bitxor_rows(x32.view(torch.int32), sched), out)
     if x32.device.type != "cuda":
         raise ValueError(f"gf_bitxor: unsupported device {x32.device}")
     if plan is None:
@@ -371,7 +397,7 @@ def gf_bitxor_lanes(x32: torch.Tensor, sched: XorSchedule, plan=None
                          "lanes with n4 % 8 == 0 and the plan on the "
                          "same device")
     from . import cuda_lib
-    y32 = torch.empty((p.rows, n4), dtype=torch.int32, device=x32.device)
+    y32 = _out_lanes(out, p.rows, x32, "gf_bitxor")
     with torch.cuda.device(x32.device):
         stream = torch.cuda.current_stream(x32.device).cuda_stream
         err = cuda_lib.lib().gf_bitxor(
@@ -426,19 +452,20 @@ def gf_region_graph(M: np.ndarray, kernel: str = "xla"):
 
 
 def region_fn(M: np.ndarray, kernel: str = "auto"):
-    """fn(data (c, L) uint8 tensor) -> (r, L) uint8 tensor on data's
-    device: the kernel on a CUDA tensor, its plain version on a CPU one
-    (one RegionMatmul per device, built at first call)."""
+    """fn(data (c, L) uint8 tensor, out=None) -> (r, L) uint8 tensor on
+    data's device: the kernel on a CUDA tensor, its plain version on a
+    CPU one (one RegionMatmul per device, built at first call); ``out``
+    as in RegionMatmul.__call__."""
     ops: dict[torch.device, RegionMatmul] = {}
     lock = threading.Lock()
 
-    def fn(data):
+    def fn(data, out=None):
         with lock:
             op = ops.get(data.device)
             if op is None:
                 op = ops[data.device] = RegionMatmul(
                     M, kernel=kernel, device=data.device)
-        return op(data)
+        return op(data, out=out)
 
     return fn
 
@@ -643,16 +670,21 @@ class _LaneOp:
                              f"{type(self).__name__} on {self.device}")
         return x.to(self.device)
 
-    def encode_lanes(self, x32: torch.Tensor) -> torch.Tensor:
+    def encode_lanes(self, x32: torch.Tensor, out32=None) -> torch.Tensor:
         """Raw lane-domain entry: x32 (c, n4) int32/uint32 tensor ->
-        (r, n4) int32 tensor on this op's device.  n4 must already be a
-        multiple of 128 (whole tiles) and, beyond one block, of BLOCK."""
+        (r, n4) int32 tensor on this op's device (``out32``, an (r, n4)
+        int32 tensor there, when given: RegionMatmul's lanes take one).
+        n4 must already be a multiple of 128 (whole tiles) and, beyond
+        one block, of BLOCK."""
         n4 = x32.shape[-1]
         if n4 % 128 or (n4 > self.BLOCK and n4 % self.BLOCK):
             raise ValueError(
                 f"encode_lanes wants n4 % 128 == 0 and, beyond one block, "
                 f"n4 % {self.BLOCK} == 0; got {n4}")
-        return self._lanes_op(self._on_device(x32))
+        x32 = self._on_device(x32)
+        if out32 is None:
+            return self._lanes_op(x32)
+        return self._lanes_op(x32, out32)
 
     def _bytes_in(self, data) -> torch.Tensor:
         """``data`` as a (c, L) uint8 tensor (numpy is wrapped)."""
@@ -665,16 +697,30 @@ class _LaneOp:
                 f"expected ({self.c}, L) data, got {tuple(data.shape)}")
         return data
 
-    def __call__(self, data, *, donate: bool = False) -> torch.Tensor:
+    def __call__(self, data, *, donate: bool = False,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
         """data (c, L) uint8 (numpy, or a tensor on the host or on this
         op's device) -> (r, L) uint8 tensor on this op's device.
         ``donate`` is accepted for the JAX package's signature and
-        ignored: the port does not alias inputs yet."""
+        ignored (``out`` is the port's way to reuse a buffer).
+
+        ``out``, an (r, L) uint8 tensor on this op's device, receives
+        the result and is returned; the caller owns it (a flush's
+        scratch, never an arena-held tensor).  Where it is contiguous,
+        16-byte aligned and L needs no padding, the kernel writes into
+        it; else the result is copied in."""
         data = self._bytes_in(data)
         L = data.shape[1]
+        if out is not None and (out.shape != (self.r, L)
+                                or out.dtype != torch.uint8
+                                or out.device != self.device):
+            raise ValueError(f"out: want a ({self.r}, {L}) uint8 tensor on "
+                             f"{self.device}, got {tuple(out.shape)} "
+                             f"{out.dtype} on {out.device}")
         if L == 0:
-            return torch.zeros((self.r, 0), dtype=torch.uint8,
-                               device=self.device)
+            return (out if out is not None else
+                    torch.zeros((self.r, 0), dtype=torch.uint8,
+                                device=self.device))
         pad = (-L) % self._quantum(L)
         x = self._on_device(data)
         if pad or not x.is_contiguous() or x.data_ptr() % 16:
@@ -682,9 +728,15 @@ class _LaneOp:
                               device=self.device)
             buf[:, :L] = x
             x = buf
-        y32 = self.encode_lanes(x.view(torch.int32))
-        out = y32.view(torch.uint8)
-        return out[:, :L] if pad else out
+        out32 = (out.view(torch.int32) if out is not None and not pad
+                 and out.is_contiguous() and out.data_ptr() % 16 == 0
+                 else None)
+        res = self.encode_lanes(x.view(torch.int32), out32).view(torch.uint8)
+        res = res[:, :L] if pad else res
+        if out is not None and res.data_ptr() != out.data_ptr():
+            out.copy_(res)
+            return out
+        return res
 
 
 class RegionMatmul(_LaneOp):
@@ -741,15 +793,15 @@ class RegionMatmul(_LaneOp):
                                        plan)
             return self._dev_state
 
-    def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:
+    def _lanes_op(self, x32: torch.Tensor, out32=None) -> torch.Tensor:
         """The core (c, n4) -> (r, n4) lane computation of the selected
         realization."""
         if self.kernel == "xla":
-            return _rows_op(x32.view(torch.int32), self._terms)
+            return _into(_rows_op(x32.view(torch.int32), self._terms), out32)
         state = None if x32.device.type == "cpu" else self._device_state()
         if self.kernel == "bitxor":
-            return gf_bitxor_lanes(x32, self._sched, state)
-        return gf_bitterm_lanes(x32, self._terms, state)
+            return gf_bitxor_lanes(x32, self._sched, state, out=out32)
+        return gf_bitterm_lanes(x32, self._terms, state, out=out32)
 
 
 class ScheduledXor(_LaneOp):

@@ -1,4 +1,5 @@
-"""Core runtime of the port: perf counters and the kernel profiler."""
+"""Core runtime of the port: perf counters and the kernel profiler (the
+host<->device staging plane is ``utils.staging``)."""
 
 from .perf import (CounterType, KernelProfiler, PerfCounters,
                    PerfCountersCollection, global_perf, kernel_profiler)

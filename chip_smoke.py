@@ -5,40 +5,63 @@ hand-written kernels against their plain versions.
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one NVIDIA card (an
-H100; the kernels are built for sm_90a).  Phases, one line each:
+H100; the kernels are built for sm_90a).  It builds the CUDA library
+from ceph_tpu_torch/csrc/ and the native library from native/.  Phases,
+in order, one line each:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — nvcc builds every kernel from ceph_tpu_torch/csrc/.
-3. kernels — each kernel against its plain version on the card
+2. build   — nvcc builds every kernel from ceph_tpu_torch/csrc/, one
+             process per source, all started together.
+3. kernels — each region kernel against its plain version on the card
              (torch.equal) and against the numpy oracle, over the listed
              matrices and lengths, K3 in plane-row and in packet mode;
              CUDA-event times at the main shapes (K1 and K2 at the 3x8
              encode and the 8x8 decode, with K1's instruction floor), with
              K3's yardstick (a device copy of the same bytes).
-4. slice   — the ``tpu`` plugin (reed_sol_van k=8, m=3) on the card:
+4. crc     — G1, the CRC32C kernel, against its plain version and the
+             native library's crc32c at chunk lengths from 4 bytes to
+             1 MiB + 4 on 1 to 704 rows, all-zero and all-0xFF chunks
+             too; CUDA-event time at (11, 8 MiB) in 128 KiB chunks beside
+             its bound and a device copy moving the same bytes.
+5. slice   — the ``tpu`` plugin (reed_sol_van k=8, m=3) on the card:
              encode_batch / decode_batch of 64 x 1 MiB stripes and
              encode / decode through the interface, byte-exact.
-5. cli     — tools.ec_benchmark encode and decode at 80 MiB x 10.
-6. corpus  — tools.ec_non_regression --check on corpus/ (11 directories).
-7. bits    — the jerasure bit-matrix techniques (liberation k=5,
+6. cli     — tools.ec_benchmark encode and decode at 80 MiB x 10.
+7. corpus  — tools.ec_non_regression --check on corpus/ (11 directories).
+8. bits    — the jerasure bit-matrix techniques (liberation k=5,
              blaum_roth k=4, liber8tion k=6, m=2) on the card: a 4 MiB
              object encoded and decoded for every 1- and 2-erasure
              pattern, byte-exact against the numpy-backend codec.
-8. bitcli  — tools.ec_benchmark for them at 80 MiB x 3 (encode, decode
+9. bitcli  — tools.ec_benchmark for them at 80 MiB x 3 (encode, decode
              with 2 erasures) and an isa k=8 m=4 encode.
-9. bitcorpus — their corpus directories again with the device-apply size
+10. bitcorpus — their corpus directories again with the device-apply size
              rule at 0, so the scheduled-XOR kernel sees the corpus bytes.
+11. write  — the EC write path at the OSD's batching defaults: 8 writer
+             threads x 16 checksummed encodes of 1 MiB stripes (k=8,
+             m=3) through one ECBatcher, then 8 threads of degraded reads
+             of every stripe (shards 1, 4, 9 missing; half the survivors
+             from a DeviceArena as tensors), then one folded scrub verify
+             with one bit flipped; parity against the oracle, csums
+             against native crc32c, reads and digests exact.  Between the
+             writes and the reads, two flushes of 8 checksummed encodes
+             of four lengths in one bucket (two of them not whole words),
+             which the fused op cannot take.
 
-Phases 4-6 are the main path of the ``tpu`` plugin and phases 7-9 the
-bit-matrix path: the launch counts are set to 0 before each path and
-read after it.  The region kernels must have launched on the first, the
-scheduled-XOR kernel on the second, the plain versions on neither, and
-no kernel pick may have skipped a candidate; where the first path raced
-a matrix of phase 3 at its length, it must have pinned the kernel that
-phase 3 timed faster (unless the two are within 5 %).  Then one JSON line lists
-every kernel, and the last line is the ``{"ok": true, "device": ...}``
-object.  Any failure exits nonzero, and so does a process with no CUDA
-card.
+Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
+bit-matrix path and phase 11 the write path: the launch counts are set
+to 0 before each path and read after it.  The region kernels must have
+launched on the first, the scheduled-XOR kernel on the second, G1 and a
+region kernel on the third, the plain versions on none, and no kernel
+pick may have skipped a candidate; where the first path raced a matrix
+of phase 3 at its length, it must have pinned the kernel that phase 3
+timed faster (unless the two are within 5 %).  On the write path every
+encode flush of one length must have taken the fused encode+CRC op,
+every flush of several lengths one G1 launch per length and no fused
+op, no CRC may have run on the host, and every encode and decode flush
+must have left the card in exactly one copy.  Then one
+JSON line lists every kernel, and the last line is the ``{"ok": true,
+"device": ...}`` object.  Any failure exits nonzero, and so does a
+process with no CUDA card.
 """
 
 from __future__ import annotations
@@ -51,17 +74,21 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch import ec
+from ceph_tpu_torch.ec import batcher as ec_batcher
 from ceph_tpu_torch.ec.bitmatrix_code import BitMatrixErasureCode
 from ceph_tpu_torch.ec.matrix_code import MatrixErasureCode, _shape_bucket
-from ceph_tpu_torch.ops import cuda_lib, ec_kernels, gf256, xor_schedule
+from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
+                                native, xor_schedule)
 from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
-from ceph_tpu_torch.utils.perf import kernel_profiler
+from ceph_tpu_torch.utils import staging
+from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261017
@@ -101,6 +128,33 @@ BIT_CLI_L = 2_396_800
 SCHED_LENGTHS = (4, 64, 508, 512, 32 * 1024 + 4, 100_000, BIT_CLI_L,
                  10 << 20)
 OBJECT_SIZE = 4 << 20  # the RADOS default object size
+
+#: G1: (kernel name, launch counter, TPU site, source)
+CRC_KERNEL = ("crc32c_chunks", "crc32c_chunks",
+              "ceph_tpu/ops/checksum.py:190",
+              "ceph_tpu_torch/csrc/crc32c.cu")
+#: chunk lengths of the crc phase, each on CRC_ROWS rows of one chunk
+CRC_LENGTHS = (4, 12, 508, 4096, 4100, 128 << 10, 1 << 20, (1 << 20) + 4)
+CRC_ROWS = (1, 11, 704)
+#: G1's main shape: the fused CRC of a 64-stripe k=8, m=3 batch of 1 MiB
+#: stripes, (rows, bytes per row, chunk bytes)
+CRC_MAIN = (11, 8 << 20, 128 << 10)
+
+#: the write path: writers, encodes per writer, tpu reed_sol_van k, m,
+#: chunk bytes (1 MiB stripes), the shards missing from the degraded
+#: reads, and the ECBatcher at the OSD's defaults (ceph_tpu/utils/
+#: config.py: ec_batch_window_us 500, ec_batch_max_bytes 8 MiB,
+#: ec_batch_adaptive on, ec_batch_target_ops 4, ec_batch_window_min_us
+#: 50, ec_batch_window_max_us 4000; the OSD passes all six)
+WRITE = dict(writers=8, per_writer=16, k=8, m=3, chunk=128 << 10,
+             erased=(1, 4, 9),
+             batcher=dict(window_us=500.0, max_bytes=8 << 20,
+                          adaptive=True, target_ops=4.0,
+                          window_min_us=50.0, window_max_us=4000.0))
+#: rows of the scrub fold
+SCRUB_ROWS = 64
+#: size flushes of the mixed-length writes (one encode a writer each)
+MIXED_ROUNDS = 2
 
 
 def say(phase: str, msg: str) -> None:
@@ -344,6 +398,368 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         all_times[realization] = times
     return results, all_times
+
+
+def crc_bound_parts(rows: int, row_bytes: int, chunk: int
+                    ) -> tuple[float, float]:
+    """(bytes ms, operations ms) of the standard CRC32C of every
+    ``chunk``-byte chunk of (rows, row_bytes) bytes: each input byte read
+    once and each 4-byte digest written once at the HBM rate; the CRC as
+    a GF(2) matrix-vector product (32 x 8 * chunk bits a chunk, an AND
+    and an XOR per entry) at the int8 tensor-core rate."""
+    n_in = rows * row_bytes
+    t_bytes = (n_in + 4 * rows * (row_bytes // chunk)) / HBM_BYTES_PER_S
+    t_ops = 2 * 32 * 8 * n_in / INT8_OPS_PER_S
+    return t_bytes * 1e3, t_ops * 1e3
+
+
+def phase_crc(dev: torch.device, lengths=CRC_LENGTHS, rows_list=CRC_ROWS,
+              main=CRC_MAIN, n_time: int = 30) -> dict:
+    """G1 against its plain version (equal digests) and against the
+    native library's crc32c, at every length of ``lengths`` on each row
+    count of ``rows_list`` (one chunk a row) and on all-zero and
+    all-0xFF chunks; then CUDA-event times at ``main`` in its chunks,
+    beside the bound, the plain version and a device copy of the same
+    bytes.  Returns G1's row of the kernels line."""
+    name, _ctr, site, source = CRC_KERNEL
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    cases = err = 0
+    for L in lengths:
+        plan = checksum.crc_plan(L)
+        fn = plan.device_fn()
+        for rows in rows_list + ("fill",):
+            if rows == "fill":
+                data = torch.tensor([[0], [255]], dtype=torch.uint8,
+                                    device=dev).expand(2, L).contiguous()
+            else:
+                data = torch.randint(0, 256, (rows, L), dtype=torch.uint8,
+                                     device=dev, generator=gen)
+            words = data.view(torch.int32)
+            got = fn(words)
+            want = plan.plain(words).view(torch.uint32)
+            torch.cuda.synchronize(dev)
+            err = max(err, int((got.view(torch.int32).long()
+                                - want.view(torch.int32).long())
+                               .abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} L={L} rows={rows}: differs "
+                                     "from its plain version")
+            host = np.array(native.crc32c_blocks(data.cpu().numpy(), L),
+                            dtype=np.uint32)
+            if not np.array_equal(got.cpu().numpy(), host):
+                raise AssertionError(f"{name} L={L} rows={rows}: differs "
+                                     "from native crc32c")
+            cases += 1
+            del data, words, got, want
+    say("crc", f"{name}: {cases} cases ({len(lengths)} lengths x rows "
+               f"{', '.join(map(str, rows_list))} and all-0 / all-0xFF "
+               "chunks) equal to its plain version and native crc32c")
+    rows, row_bytes, chunk = main
+    plan = checksum.crc_plan(chunk)
+    data = torch.randint(0, 256, (rows, row_bytes), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    words = data.view(torch.int32).reshape(-1, chunk // 4)
+    ms = cuda_ms(lambda: checksum.crc32c_chunks(words, plan), n_time)
+    plain_ms = cuda_ms(lambda: plan.plain(words), max(5, n_time // 4),
+                       warm=1)
+    # the yardstick moves the bytes G1 reads: half read, half written
+    half = data.reshape(-1)[: rows * row_bytes // 2]
+    copy_ms = cuda_ms(lambda: torch.empty_like(half).copy_(half), n_time)
+    t_bytes, t_ops = crc_bound_parts(rows, row_bytes, chunk)
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    k_words, segs, pad = checksum.kernel_split(chunk // 4)
+    clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+    say("crc", f"{name}: ({rows}, {row_bytes >> 20} MiB) in {chunk >> 10} "
+               f"KiB chunks ({segs} segments of {k_words} words a thread a "
+               f"chunk): {ms:.4f} ms = {rows * row_bytes / ms / 1e6:.1f} "
+               f"GB/s, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+               f"{t_bytes:.4f}, operations {t_ops:.4f}), "
+               f"{ms / bound_ms:.2f}x the bound; plain {plain_ms:.3f} ms; a "
+               f"device copy moving the same bytes (half read, half "
+               f"written) {copy_ms:.4f} ms; after "
+               f"timing: {clocks}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": site, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _threads(n: int, target, *args) -> float:
+    """Run target(i, *args) in n threads started together; returns the
+    wall seconds.  Any exception of a thread is raised here."""
+    errors = []
+    gate = threading.Barrier(n)
+
+    def run(i):
+        try:
+            gate.wait()
+            target(i, *args)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    dt = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a writer or reader thread did not finish")
+    if errors:
+        raise errors[0]
+    return dt
+
+
+def csum_launches() -> int:
+    """Launches of the fused encode+CRC op so far (its ``csum/``
+    signatures in the kernel profiler)."""
+    return sum(a["device"] + a["compile"] for sig, a in
+               kernel_profiler().dump()["signatures"].items()
+               if sig.startswith("csum/"))
+
+
+@contextlib.contextmanager
+def counted_sweeps(sweeps: list):
+    """Within the block, every host CRC sweep of the batcher appends its
+    row count to ``sweeps``."""
+    host_csums = ec_batcher._host_csums
+
+    def counted(rows):
+        sweeps.append(len(rows))
+        return host_csums(rows)
+
+    ec_batcher._host_csums = counted
+    try:
+        yield
+    finally:
+        ec_batcher._host_csums = host_csums
+
+
+def mixed_lengths(chunk: int, writers: int) -> list[int]:
+    """Writer w's chunk length in the mixed writes: ``chunk`` less one of
+    four cuts, so four lengths in ``chunk``'s bucket, the last two not
+    whole words."""
+    cuts = (0, chunk // 32, chunk // 16 + 2, chunk // 8 + 3)
+    return [chunk - cuts[w % len(cuts)] for w in range(writers)]
+
+
+def mixed_writes(codec, rng: np.random.Generator, *, writers: int,
+                 chunk: int, rounds: int = MIXED_ROUNDS) -> dict:
+    """``rounds`` flushes of one checksummed encode from each of
+    ``writers`` threads at mixed_lengths: lengths in one bucket that the
+    fused op cannot take (an ECBatcher
+    whose byte limit is one round, so each round is one size flush).
+    Checks every parity and csum; returns the flushes, the distinct
+    lengths, and the G1 launches, fused launches and device-to-host
+    copies they made."""
+    k = codec.k
+    lengths = mixed_lengths(chunk, writers)
+    batcher = ec_batcher.ECBatcher(window_us=10_000_000,
+                                   max_bytes=k * sum(lengths))
+    data = [[rng.integers(0, 256, (k, L), dtype=np.uint8)
+             for _ in range(rounds)] for L in lengths]
+    out = [[None] * rounds for _ in range(writers)]
+    stage = staging.stage_perf()
+    d2h0 = stage.get("ec_stage_d2h_copies")
+    g0 = ec_kernels.launch_counts()[CRC_KERNEL[1]]
+    c0 = csum_launches()
+
+    def write(w):
+        for r in range(rounds):
+            out[w][r] = batcher.encode(codec, data[w][r], with_csums=True)
+
+    write_s = _threads(writers, write)
+    for w in range(writers):
+        for r in range(rounds):
+            parity, csums = out[w][r]
+            if not np.array_equal(
+                    parity, gf256.encode_region(codec.matrix, data[w][r])):
+                raise AssertionError(f"mixed write {w}.{r}: parity "
+                                     "differs from the oracle")
+            stack = np.concatenate([data[w][r], parity])
+            host = np.array([native.crc32c(row) for row in stack],
+                            dtype=np.uint32)
+            if not np.array_equal(csums, host):
+                raise AssertionError(f"mixed write {w}.{r}: csums differ "
+                                     "from native crc32c")
+    result = {"launches": batcher.stats["launches"],
+              "lengths": len(set(lengths)),
+              "g1": ec_kernels.launch_counts()[CRC_KERNEL[1]] - g0,
+              "csum_launches": csum_launches() - c0,
+              "d2h": stage.get("ec_stage_d2h_copies") - d2h0}
+    say("write", f"{writers * rounds} checksummed encodes of lengths "
+                 f"{sorted(set(lengths))} from {writers} threads: parity "
+                 f"equal to the oracle, csums to native crc32c; "
+                 f"{result['launches']} flushes, {result['g1']} G1 "
+                 f"launches, {result['csum_launches']} fused; "
+                 f"{write_s:.3f} s")
+    return result
+
+
+def phase_write(dev: torch.device, rng: np.random.Generator, *,
+                writers: int, per_writer: int, k: int, m: int, chunk: int,
+                erased: tuple, batcher: dict,
+                scrub_rows: int = SCRUB_ROWS) -> dict:
+    """The EC write path through its entry points: ``writers`` threads
+    each submit ``per_writer`` checksummed encodes of (k, chunk) stripes
+    to one ECBatcher built with the ``batcher`` settings; then as many threads decode every stripe with the
+    ``erased`` shards missing, half of each read's survivors served from a
+    DeviceArena as tensors; then one folded scrub verify of
+    ``scrub_rows`` stored chunks with one bit flipped.  Checks every
+    parity against the numpy oracle, every csum against native crc32c,
+    every decoded chunk, and the verify digests.  Between the writes and
+    the reads, mixed_writes on the same codec.  Returns what
+    check_write_path reads."""
+    codec = ec.factory("tpu", {"k": str(k), "m": str(m),
+                               "device": str(dev)})
+    perf = global_perf().create("ec_batch_smoke")
+    batcher = ec_batcher.ECBatcher(perf=perf, **batcher)
+    n = writers * per_writer
+    data = rng.integers(0, 256, (n, k, chunk), dtype=np.uint8)
+    parity = [None] * n
+    csums = [None] * n
+    stage = staging.stage_perf()
+    d2h0 = stage.get("ec_stage_d2h_copies")
+    sweeps = []  # host CRC sweeps: none may run here
+
+    def write(w):
+        for i in range(w * per_writer, (w + 1) * per_writer):
+            parity[i], csums[i] = batcher.encode(codec, data[i],
+                                                 with_csums=True)
+
+    with counted_sweeps(sweeps):
+        write_s = _threads(writers, write)
+    enc = dict(batcher.stats)
+    d2h1 = stage.get("ec_stage_d2h_copies")
+    csum_written = csum_launches()
+    folded = data.transpose(1, 0, 2).reshape(k, n * chunk)
+    oracle = gf256.encode_region(codec.matrix, folded).reshape(m, n, chunk)
+    for i in range(n):
+        if not np.array_equal(parity[i], oracle[:, i]):
+            raise AssertionError(f"write {i}: parity differs from the "
+                                 "oracle")
+        stack = np.concatenate([data[i], parity[i]])
+        host = np.array(native.crc32c_blocks(stack, chunk), dtype=np.uint32)
+        if not np.array_equal(csums[i], host):
+            raise AssertionError(f"write {i}: csums differ from native "
+                                 "crc32c")
+    say("write", f"{n} checksummed encodes of {k} x {chunk >> 10} KiB from "
+                 f"{writers} threads: parity equal to the oracle, csums to "
+                 f"native crc32c; {enc['launches']} flushes, "
+                 f"{enc['ops'] / enc['launches']:.2f} ops a launch, "
+                 f"reasons window {enc['window']} size {enc['size']} idle "
+                 f"{enc['idle']}, window now "
+                 f"{perf.get('ec_batch_window_us_now')} us; "
+                 f"{n * k * chunk / write_s / 1e9:.3f} GB/s of data "
+                 f"({write_s:.3f} s)")
+    with counted_sweeps(sweeps):
+        mixed = mixed_writes(codec, rng, writers=writers, chunk=chunk)
+
+    arena = ec.DeviceArena(device=dev)
+    avail = [i for i in range(k + m) if i not in erased]
+    served = avail[: len(avail) // 2]
+    decoded = [None] * n
+
+    def read(r):
+        for i in range(r * per_writer, (r + 1) * per_writer):
+            full = np.concatenate([data[i], parity[i]])
+            chunks = {}
+            for s in avail:
+                chunks[s] = (arena.put((i, s), full[s]) if s in served
+                             else full[s])
+            decoded[i] = batcher.decode(codec, list(erased), chunks)
+
+    d2h_read = stage.get("ec_stage_d2h_copies")
+    read_s = _threads(writers, read)
+    dec = {key: batcher.stats[key] - enc[key] for key in enc}
+    for i in range(n):
+        full = np.concatenate([data[i], parity[i]])
+        for s in erased:
+            if not np.array_equal(decoded[i][s], full[s]):
+                raise AssertionError(f"read {i}: chunk {s} differs")
+    say("write", f"{n} degraded reads, shards {set(erased)} missing, "
+                 f"{len(served)} of {len(avail)} survivors from the arena "
+                 f"as tensors: byte-exact; {dec['launches']} flushes, "
+                 f"{dec['ops'] / dec['launches']:.2f} ops a launch; "
+                 f"{n * k * chunk / read_s / 1e9:.3f} GB/s of data "
+                 f"({read_s:.3f} s); arena "
+                 f"{stage.get('ec_arena_bytes') >> 20} MiB held, "
+                 f"{stage.get('ec_arena_evictions')} evictions")
+
+    d2h2 = stage.get("ec_stage_d2h_copies")
+    rows = np.ascontiguousarray(data[:scrub_rows // k].reshape(-1, chunk))
+    want = np.concatenate([csums[i][:k] for i in range(scrub_rows // k)])
+    bad = scrub_rows // 3
+    rows[bad, 1234] ^= 0x10
+    digests = batcher.verify(ec.verifier("device", dev), rows)
+    host = np.array(native.crc32c_blocks(rows, chunk), dtype=np.uint32)
+    if not np.array_equal(digests, host):
+        raise AssertionError("verify digests differ from native crc32c")
+    flagged = np.nonzero(digests != want)[0].tolist()
+    if flagged != [bad]:
+        raise AssertionError(f"verify flagged rows {flagged}, not [{bad}]")
+    say("write", f"scrub verify of ({rows.shape[0]}, {chunk >> 10} KiB) with "
+                 f"one bit flipped: digests equal to native crc32c, row "
+                 f"{bad} singled out")
+    return {"encode": enc, "decode": dec, "sweeps": len(sweeps),
+            "d2h_encode": d2h1 - d2h0, "d2h_decode": d2h2 - d2h_read,
+            "csum_launches": csum_written, "mixed": mixed}
+
+
+def check_write_path(counts: dict[str, int], result: dict,
+                     csum_before: int = 0) -> None:
+    """The write path went through G1 and a region kernel and no plain
+    version; every encode flush of one length took the fused op (its
+    ``csum/`` launches, less ``csum_before`` from earlier paths, are one
+    per encode flush); every flush of the mixed writes launched G1 once
+    a length and no fused op; no host CRC sweep ran; every encode and
+    decode flush left the card in exactly one metered copy."""
+    say("launches", f"write path: {json.dumps(counts)}")
+    if counts[CRC_KERNEL[1]] <= 0:
+        raise AssertionError(f"{CRC_KERNEL[1]} never launched on the "
+                             "write path")
+    if counts["gf_bitterm"] + counts["gf_bitxor"] <= 0:
+        raise AssertionError("no region kernel launched on the write path")
+    if counts["plain"]:
+        raise AssertionError(f"a plain version ran {counts['plain']} times "
+                             "on the write path")
+    enc, dec = result["encode"], result["decode"]
+    fused = result["csum_launches"] - csum_before
+    if result["sweeps"] or fused != enc["launches"]:
+        raise AssertionError(f"{enc['launches']} encode flushes took the "
+                             f"fused op {fused} times, with "
+                             f"{result['sweeps']} host CRC sweeps")
+    mixed = result["mixed"]
+    if (not mixed["launches"] or mixed["csum_launches"]
+            or mixed["g1"] != mixed["launches"] * mixed["lengths"]):
+        raise AssertionError(
+            f"{mixed['launches']} flushes of {mixed['lengths']} lengths "
+            f"made {mixed['g1']} G1 launches and took the fused op "
+            f"{mixed['csum_launches']} times")
+    if (result["d2h_encode"] != enc["launches"]
+            or result["d2h_decode"] != dec["launches"]
+            or mixed["d2h"] != mixed["launches"]):
+        raise AssertionError(
+            f"device-to-host copies: {result['d2h_encode']} for "
+            f"{enc['launches']} encode flushes, {mixed['d2h']} for "
+            f"{mixed['launches']} mixed ones, {result['d2h_decode']} for "
+            f"{dec['launches']} decode flushes")
+    say("launches", f"write path: {enc['launches']} encode flushes all "
+                    f"fused, {mixed['launches']} of mixed lengths with "
+                    f"{mixed['g1']} G1 launches, one device-to-host copy "
+                    f"per encode and decode flush")
+
+
+def write_path(dev: torch.device, rng: np.random.Generator, **cfg
+               ) -> tuple[dict[str, int], dict]:
+    """The write phase with the launch counts set to 0 before and read
+    after; returns the counts and phase_write's result."""
+    ec_kernels.reset_launches()
+    result = phase_write(dev, rng, **cfg)
+    return ec_kernels.launch_counts(), result
 
 
 def bit_codec(technique: str, k: int, **profile):
@@ -806,6 +1222,7 @@ def main() -> int:
     phase_build()
     kernels, times = phase_kernels(dev, rng, clock_hz)
     sched_row = phase_sched_xor(dev, rng)
+    crc_row = phase_crc(dev)
     t_main = time.perf_counter()
     counts = main_path(dev, rng)
     profile_line(time.perf_counter() - t_main)
@@ -824,8 +1241,17 @@ def main() -> int:
                              f"{OBJECT_SIZE >> 20} MiB objects stayed on "
                              "the host")
     sched_row["launches"] = bit_counts[SCHED_KERNEL[1]]
+    before = profile_totals()
+    csum_before = csum_launches()
+    t_write = time.perf_counter()
+    write_counts, write_result = write_path(dev, rng, **WRITE)
+    profile_line(time.perf_counter() - t_write, before, "write path",
+                 "data generation, staging, the oracle and crc checks")
+    check_write_path(write_counts, write_result, csum_before)
+    crc_row["launches"] = write_counts[CRC_KERNEL[1]]
     say("done", f"{time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": list(kernels.values()) + [sched_row]}))
+    print(json.dumps({"kernels": list(kernels.values())
+                      + [sched_row, crc_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

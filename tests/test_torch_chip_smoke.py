@@ -107,3 +107,118 @@ def test_race_picks_must_follow_phase_3(monkeypatch):
     times["bitxor"]["reed_sol_van 3x8"] = 0.044
     picks[sig]["picked"] = "bitxor"
     chip_smoke.check_race_picks(times, rng)
+
+
+def test_crc_bound_counts_the_fused_batch():
+    """G1's bound at its main shape, the fused CRC of a 64-stripe k=8,
+    m=3 batch: 88 MiB read once and 704 digests written at 3.35 TB/s
+    (0.0275 ms), above the CRC as a GF(2) matrix-vector product (32 x 8
+    bits a byte, an AND and an XOR each) at the int8 rate."""
+    rows, row_bytes, chunk = chip_smoke.CRC_MAIN
+    t_bytes, t_ops = chip_smoke.crc_bound_parts(rows, row_bytes, chunk)
+    assert t_bytes == (11 * (8 << 20) + 4 * 704) / 3.35e12 * 1e3
+    assert t_ops == 2 * 32 * 8 * 11 * (8 << 20) / 1979e12 * 1e3
+    assert 0.0275 < t_bytes < 0.0276 and t_ops < t_bytes
+
+
+#: a small write path for the CPU: 4 writers x 3 encodes of 8 x 4 KiB
+SMALL_WRITE = dict(writers=4, per_writer=3, k=8, m=3, chunk=4096,
+                   erased=(1, 4, 9), scrub_rows=16,
+                   batcher=dict(window_us=500.0, max_bytes=4 * 8 * 4096,
+                                adaptive=True, target_ops=4.0,
+                                window_min_us=50.0, window_max_us=4000.0))
+
+
+def test_write_path_rehearsal_on_cpu(capsys):
+    """The write phase at a small size with device=cpu: every parity,
+    csum, decoded chunk and digest checks out, every encode flush takes
+    the fused op and every flush one copy back — but the plain versions
+    ran, which check_write_path must refuse."""
+    counts, result = chip_smoke.write_path(
+        torch.device("cpu"), np.random.default_rng(4), **SMALL_WRITE)
+    out = capsys.readouterr().out
+    assert "csums to native crc32c" in out and "singled out" in out
+    assert result["sweeps"] == 0
+    assert result["csum_launches"] >= result["encode"]["launches"] > 0
+    assert result["d2h_encode"] == result["encode"]["launches"]
+    assert result["d2h_decode"] == result["decode"]["launches"]
+    mixed = result["mixed"]
+    assert mixed["launches"] == chip_smoke.MIXED_ROUNDS
+    assert mixed["lengths"] == 4 and mixed["csum_launches"] == 0
+    assert mixed["d2h"] == mixed["launches"]
+    assert counts["plain"] > 0 and counts["crc32c_chunks"] == 0
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_write_path(counts, result)
+
+
+@pytest.mark.parametrize("chunk", [4096, 128 << 10])
+def test_mixed_lengths_share_a_bucket(chunk):
+    """The mixed writes' four lengths fall in the chunk's bucket, so
+    each round is one flush, and two of them are not whole words, which
+    the fused op cannot take."""
+    from ceph_tpu_torch.ec.batcher import bucket_len
+
+    lengths = chip_smoke.mixed_lengths(chunk, 8)
+    assert len(set(lengths)) == 4 and lengths[0] == chunk
+    assert {bucket_len(L) for L in lengths} == {bucket_len(chunk)}
+    assert sorted(L % 4 for L in set(lengths)) == [0, 0, 1, 2]
+
+
+def test_counted_sweeps_sees_a_host_sweep():
+    """counted_sweeps, which the write phase wraps its writes in, sees
+    the numpy backend's host CRC sweep, and puts the sweep back after."""
+    from ceph_tpu_torch import ec
+    from ceph_tpu_torch.ec import batcher as ec_batcher
+
+    codec = ec.factory("tpu", {"k": "4", "m": "2", "backend": "numpy"})
+    data = np.random.default_rng(5).integers(0, 256, (4, 1024),
+                                             dtype=np.uint8)
+    sweep = ec_batcher._host_csums
+    sweeps = []
+    with chip_smoke.counted_sweeps(sweeps):
+        ec_batcher.ECBatcher(window_us=50).encode(codec, data,
+                                                  with_csums=True)
+    assert sweeps == [6] and ec_batcher._host_csums is sweep
+
+
+def _passing_write():
+    counts = {"gf_bitterm": 40, "gf_bitxor": 8, "gf_sched_xor": 0,
+              "crc32c_chunks": 30, "plain": 0}
+    result = {"encode": {"launches": 30}, "decode": {"launches": 25},
+              "sweeps": 0, "d2h_encode": 30, "d2h_decode": 25,
+              "csum_launches": 30,
+              "mixed": {"launches": 2, "lengths": 4, "g1": 8,
+                        "csum_launches": 0, "d2h": 2}}
+    return counts, result
+
+
+@pytest.mark.parametrize("fault", ["no region kernel", "plain ran",
+                                   "host sweep", "unfused flush",
+                                   "two copies", "decode copies",
+                                   "mixed flush fused", "mixed G1 short",
+                                   "mixed copies", "no mixed flush"])
+def test_write_path_check_refuses_each_fault(fault):
+    counts, result = _passing_write()
+    chip_smoke.check_write_path(counts, result)
+    if fault == "no region kernel":
+        counts["gf_bitterm"] = counts["gf_bitxor"] = 0
+    elif fault == "plain ran":
+        counts["plain"] = 1
+    elif fault == "host sweep":
+        result["sweeps"] = 2
+    elif fault == "unfused flush":
+        result["csum_launches"] = 29
+    elif fault == "two copies":
+        result["d2h_encode"] = 60
+    elif fault == "decode copies":
+        result["d2h_decode"] = 24
+    elif fault == "mixed flush fused":
+        result["mixed"]["csum_launches"] = 1
+    elif fault == "mixed G1 short":
+        result["mixed"]["g1"] = 2
+    elif fault == "mixed copies":
+        result["mixed"]["d2h"] = 3
+    else:
+        result["mixed"].update(launches=0, g1=0, d2h=0)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_write_path(counts, result)

@@ -51,6 +51,41 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert bad == ""
 
 
+#: the modules of the write path, imported one by one in a fresh
+#: interpreter by test_write_path_modules_import_alone
+WRITE_PATH_MODULES = ("ceph_tpu_torch.ops.native",
+                      "ceph_tpu_torch.ops.checksum",
+                      "ceph_tpu_torch.utils.staging",
+                      "ceph_tpu_torch.ec.arena",
+                      "ceph_tpu_torch.ec.verify",
+                      "ceph_tpu_torch.ec.batcher")
+
+_PROBE_EACH = r"""
+import importlib, sys
+for mod in sys.argv[1:]:
+    importlib.import_module(mod)
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "ceph_tpu" or m.startswith("ceph_tpu."))
+    if bad:
+        print(mod, ",".join(bad))
+        break
+"""
+
+
+def test_write_path_modules_import_alone():
+    """Importing each module of the write path, one after another in a
+    fresh interpreter, loads neither jax nor ceph_tpu: the probe names
+    the first module after whose import either appears."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *WRITE_PATH_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
 def _sources():
     for root, _dirs, files in os.walk(PKG):
         for f in files:
