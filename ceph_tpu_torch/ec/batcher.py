@@ -36,13 +36,21 @@ sliced away without affecting bytes.
 
 Device-resident ingest: on a CUDA codec each op's source bytes are
 staged to the card in the SUBMITTING thread (utils/staging, pinned and
-non_blocking), padded to the bucket, and the flush folds them on the
+non_blocking, then an event on that thread's stream), padded to the
+bucket, and the flush folds them on the
 card (``torch.cat``, or, for a checksummed flush, a copy into the data
 rows of the (k+m, N) buffer the fused op writes its parity into); an
 input that is already a tensor (an arena hit) is borrowed, never
 written.  On a CPU codec host bytes fold once on
 the host.  Every flush leaves the device in ONE metered copy
 (``host_sync_bulk`` -> ``staging.fetch_recorded``).
+
+Streams: on the card a flush runs on its thread's own CUDA stream
+(``staging.FlushStreams``, a small pool per batcher), which first waits
+on the events of its ops' staging copies; its kernels, its digests and
+its copy back all queue there, and it waits for its own outputs only.
+Flushes of different threads overlap on the card; on the CPU the flush
+compute sections serialize behind one lock.
 
 Checksums: a launch whose ops all want csums and share one exact chunk
 length (a multiple of 4) rides the codec's fused encode+CRC32C op —
@@ -140,7 +148,7 @@ class _PendingOp:
     __slots__ = ("codec", "streams", "chunks", "want", "length",
                  "with_csums", "callback", "deadline", "submitted",
                  "taken", "taken_at", "done", "parity", "csums",
-                 "decoded", "error", "tspan", "dev", "dev_owned")
+                 "decoded", "error", "tspan", "dev", "dev_owned", "ready")
 
     def __init__(self, codec, *, streams=None, chunks=None, want=None,
                  length=0, with_csums=False, callback=None):
@@ -169,6 +177,9 @@ class _PendingOp:
         # immutability contract, ec/arena.py)
         self.dev = None
         self.dev_owned = False
+        # an event after the staging copies on the submitting thread's
+        # stream (None on the CPU): the flush's stream waits on it
+        self.ready = None
 
 
 class ECBatcher:
@@ -216,6 +227,8 @@ class ECBatcher:
         # sections serialize behind this lock there — the card keeps
         # overlapping (see _launch_ctx)
         self._launch_lock = threading.Lock()
+        # the card: one stream per flushing thread
+        self._streams = staging.FlushStreams()
         self._groups: dict[tuple, list[_PendingOp]] = {}
         self._group_bytes: dict[tuple, int] = {}
         self.stats = {"launches": 0, "ops": 0, "bytes": 0,
@@ -386,14 +399,15 @@ class ECBatcher:
                 data, codec.device, force=False,
                 exemplar=self._op_exemplar(op))
             op.dev_owned = True
-            return
-        dev = data.to(codec.device)
-        if L < bucket:
-            op.dev = F.pad(dev, (0, bucket - L))
-            op.dev_owned = True  # the pad made a fresh tensor
         else:
-            op.dev = dev
-            op.dev_owned = dev.data_ptr() != data.data_ptr()
+            dev = data.to(codec.device)
+            if L < bucket:
+                op.dev = F.pad(dev, (0, bucket - L))
+                op.dev_owned = True  # the pad made a fresh tensor
+            else:
+                op.dev = dev
+                op.dev_owned = dev.data_ptr() != data.data_ptr()
+        op.ready = staging.record_ready(codec.device)
 
     def _stage_decode_op(self, op: _PendingOp, sig: tuple) -> None:
         """Decode counterpart: stack the op's fold rows (sorted shard
@@ -426,6 +440,7 @@ class ECBatcher:
                 stacked = F.pad(stacked, (0, bucket - op.length))
             op.dev = stacked
         op.dev_owned = True  # stack always makes a fresh tensor
+        op.ready = staging.record_ready(codec.device)
 
     @staticmethod
     def _fold_rows_for(codec, sig: tuple) -> list[int]:
@@ -659,14 +674,20 @@ class ECBatcher:
         return out
 
     # ------------------------------------------------------------ flushes
-    def _launch_ctx(self, codec):
+    def _launch_ctx(self, codec, ops=()):
         """Context the flush's compute section runs under: on a CPU
         device a per-batcher lock (overlapping launches thrash the one
-        host threadpool), on the card a no-op (its queue pipelines)."""
+        host threadpool); on the card the flushing thread's own stream,
+        after the staging events of ``ops``, with their device tensors
+        marked as used there (a host-only codec: nothing)."""
         device = getattr(codec, "device", None)
-        if device is not None and staging.backend_is_cpu(device):
+        if device is None:
+            return contextlib.nullcontext()
+        if staging.backend_is_cpu(device):
             return self._launch_lock
-        return contextlib.nullcontext()
+        return self._streams.flush(
+            torch.device(device), waits=[o.ready for o in ops],
+            uses=[t for o in ops for t in _op_tensors(o)])
 
     @staticmethod
     def _fold_host_rows(parts, lengths, width: int, n_rows: int,
@@ -785,7 +806,7 @@ class ECBatcher:
                 # ONE flush: parity + per-chunk CRC32C for every stripe
                 # in the launch (csums (k+m, n2), one column per stripe)
                 padded_cols = n2 * L0
-                with self._launch_ctx(codec):
+                with self._launch_ctx(codec, ops):
                     if all(o.dev is not None for o in ops):
                         # device-resident fold: exact-L0 slices of the
                         # bucket-padded tensors, copied on the card into
@@ -812,7 +833,7 @@ class ECBatcher:
             else:
                 padded_cols = n2 * bucket
                 on_device = getattr(codec, "_backend", None) == "torch"
-                with self._launch_ctx(codec):
+                with self._launch_ctx(codec, ops):
                     if all(o.dev is not None for o in ops):
                         # device-resident plane: fold on the card, ONE
                         # metered copy back per flush
@@ -883,7 +904,7 @@ class ECBatcher:
                 # product with no host copy in between), and every
                 # waiter's rows carve out of ONE bulk copy per launch
                 avail_ids = self._fold_rows_for(codec, sig)
-                with self._launch_ctx(codec):
+                with self._launch_ctx(codec, ops):
                     if all(o.dev is not None for o in ops):
                         folded, _owned = self._fold_device(
                             ops, bucket, len(avail_ids), n2)
@@ -946,7 +967,7 @@ class ECBatcher:
         try:
             folded = (ops[0].streams if len(ops) == 1
                       else np.concatenate([o.streams for o in ops]))
-            with self._launch_ctx(ver):
+            with self._launch_ctx(ver, ops):
                 digs = ver.digests(folded)
             row = 0
             for o in ops:
@@ -960,6 +981,18 @@ class ECBatcher:
             self._trace_flush_done(fspan, bucket=sig[-1],
                                    src_cols=n_rows, padded_cols=n_rows)
             self._complete(ops, src_bytes, reason)
+
+
+def _op_tensors(op: _PendingOp):
+    """The device tensors an op brings to its flush: its staged stack and
+    any tensor it was handed (an arena hit)."""
+    if op.dev is not None:
+        yield op.dev
+    if isinstance(op.streams, torch.Tensor):
+        yield op.streams
+    for c in (op.chunks or {}).values():
+        if isinstance(c, torch.Tensor):
+            yield c
 
 
 def _nbytes(x) -> int:

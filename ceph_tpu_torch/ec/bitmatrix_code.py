@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops.ec_kernels import ScheduledXor
+from ..utils import staging
 from ..utils.perf import kernel_profiler
 from .interface import (ChunkMap, ErasureCode, ErasureCodeError, Flags,
                         SIMD_ALIGN)
@@ -284,8 +285,7 @@ class BitMatrixErasureCode(ErasureCode):
         sig = f"bitxor/{B.shape[0]}x{B.shape[1]}/L{g * SIMD_ALIGN}"
         t0 = time.perf_counter()
         out = op(torch.from_numpy(chunks).to(self.device))
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
+        staging.wait_for((out,))  # its own outputs, not the whole card
         dt = time.perf_counter() - t0
         shape_key = (sig, chunks.shape)
         with self._xor_lock:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import checksum, ec_kernels, gf256, native
+from ..utils import staging
 from ..utils.perf import kernel_profiler
 from .interface import ChunkMap, ErasureCode, ErasureCodeError, Flags
 
@@ -380,13 +381,14 @@ class MatrixErasureCode(ErasureCode):
         return gf256.encode_region(M, rows)
 
     def _profiled_launch(self, op, rows, sig: str, events=None):
-        """One timed launch: elapsed measured around a device
-        synchronize (enqueue + device execute, NOT the host copy —
-        that's host_sync's slice).  A (kernel, shape) pair's first launch
-        builds the op's device tables (and, first in the process, the
-        CUDA library) and is recorded as a compile event.  ``events``, a
-        (start, end) pair of CUDA events, are recorded on the device's
-        current stream just before and just after the op."""
+        """One timed launch: elapsed measured until the op's own outputs
+        are done (staging.wait_for: an event on the stream it ran on,
+        never the whole card) — enqueue + device execute, NOT the host
+        copy, which is host_sync's slice.  A (kernel, shape) pair's first
+        launch builds the op's device tables (and, first in the process,
+        the CUDA library) and is recorded as a compile event.
+        ``events``, a (start, end) pair of CUDA events, are recorded on
+        the device's current stream just before and just after the op."""
         t0 = time.perf_counter()
         if events is not None:
             events[0].record(torch.cuda.current_stream(self.device))
@@ -394,9 +396,7 @@ class MatrixErasureCode(ErasureCode):
         if events is not None:
             events[1].record(torch.cuda.current_stream(self.device))
         # the fused encode+CRC op returns (parity, csums)
-        first = out[0] if isinstance(out, tuple) else out
-        if first.device.type == "cuda":
-            torch.cuda.synchronize(first.device)
+        staging.wait_for(out if isinstance(out, tuple) else (out,))
         dt = time.perf_counter() - t0
         key = (sig, tuple(rows.shape))
         with self._cache_lock:
@@ -441,7 +441,6 @@ class MatrixErasureCode(ErasureCode):
         parity + csums, or a decode's stacked rows) leave the device
         together, booked as one ``ec_stage_d2h`` copy.  Numpy inputs
         pass through untimed, same as host_sync."""
-        from ..utils import staging
         return staging.fetch_recorded(devs, sig=sig)
 
     def decode_folded_device(self, want: Sequence[int],

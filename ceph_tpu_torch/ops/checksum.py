@@ -18,10 +18,11 @@ crc32_combine math).  Two device forms follow from that:
   M^(4 * 2^l), on ``int32`` views (CPU torch has no shifts on uint32;
   an arithmetic shift then ``& 1`` gives the same bit);
 - G1, the CUDA kernel ``crc32c_chunks`` (csrc/crc32c.cu, wrapper
-  ``crc32c_chunks``): segments of T * K words per block, a strided run of
-  K words per thread on byte tables of M^(4T), and the segment partials
-  shifted into place by operators the host builds here
-  (``kernel_split``, ``kernel_tables``).
+  ``crc32c_chunks``): the words of a run as GF(2) products on the tensor
+  cores (binary ``mma.sync`` at ``CRC_GEOMETRY``), Horner steps between
+  runs as one more product, and the partials shifted into place by
+  operators the host builds here (``kernel_split``, ``kernel_tables``)
+  in the layout of the lanes' registers.
 
 Both give the standard CRC32C; ``device_fn`` takes the kernel for a CUDA
 tensor and the plain version for a CPU one, and never the other way.
@@ -281,65 +282,178 @@ def crc_plan(nbytes: int) -> CrcPlan:
 # G1: the host half of the CUDA kernel crc32c_chunks
 # ---------------------------------------------------------------------------
 
-#: threads of a crc32c_chunks block (kCrcThreads in csrc/crc32c.cu)
-CRC_THREADS = 256
-#: most words one thread takes (kCrcMaxRun in csrc/crc32c.cu)
-CRC_MAX_RUN = 32
+@dataclass(frozen=True)
+class CrcGeometry:
+    """What one build of crc32c_chunks computes with (the template
+    arguments of csrc/crc32c.cu): binary (``b1``, m16n8k256 and.popc) or
+    int8 (m16n8k32) tensor-core products, ``words`` words a lane loads at
+    once (2 or 4), ``loads`` loads a lane makes a Horner step, ``warps``
+    warps a block, and ``per_lane`` words a lane takes a segment."""
+
+    b1: bool
+    words: int
+    loads: int
+    warps: int
+    per_lane: int
+
+    @property
+    def iters(self) -> int:
+        """Horner steps a segment, at most."""
+        return self.per_lane // (self.words * self.loads)
+
+    @property
+    def steps(self) -> int:
+        """Data k-steps a Horner step."""
+        return self.loads if self.b1 else self.loads * self.words * 2
+
+    @property
+    def step_words(self) -> int:
+        """Words a block takes a Horner step."""
+        return 32 * self.warps * self.words * self.loads
+
+    @property
+    def run(self) -> int:
+        """Words of one mma row a Horner step (R)."""
+        return 2 * self.words * self.loads
 
 
-def kernel_split(n_words: int, max_run: int = CRC_MAX_RUN
+#: the setting the library launches (the template arguments of the C
+#: entry crc32c_chunks in csrc/crc32c.cu)
+CRC_GEOMETRY = CrcGeometry(b1=True, words=4, loads=1, warps=8, per_lane=32)
+
+
+def kernel_split(n_words: int, geo: CrcGeometry = CRC_GEOMETRY
                  ) -> tuple[int, int, int]:
-    """(k_words, segs, pad) of crc32c_chunks for chunks of ``n_words``
-    words: every thread takes k_words words (a power of two, at most
-    ``max_run``, fewer only when one segment holds the whole chunk), a
-    block one segment of CRC_THREADS * k_words words, and ``pad`` zero
-    words before the chunk make it ``segs`` whole segments."""
+    """(iters, segs, pad) of crc32c_chunks for chunks of ``n_words``
+    words: a segment is ``iters`` Horner steps of ``geo.step_words``
+    words (``geo.iters``, fewer only when one segment holds the whole
+    chunk), and ``pad`` zero words before the chunk make it ``segs``
+    whole segments."""
     if n_words < 1:
         raise ValueError("a chunk has at least one word")
-    k = 1
-    while k < max_run and k * CRC_THREADS < n_words:
-        k *= 2
-    seg = k * CRC_THREADS
+    iters = min(geo.iters, -(-n_words // geo.step_words))
+    seg = iters * geo.step_words
     segs = -(-n_words // seg)
-    return k, segs, segs * seg - n_words
+    return iters, segs, segs * seg - n_words
 
 
 @dataclass(frozen=True)
 class KernelTables:
-    """What the crc32c_chunks wrapper uploads, as uint32 arrays:
-    ``tabs`` (4, 256), M^(4T) of each byte value v at byte n, (v << 8n);
-    ``lane_ops`` (32, T), column j of M^(4 (T - t)) at [j, t];
-    ``ladder`` (32, 32), M^(4 T k_words 2^j) by columns."""
+    """What the crc32c_chunks wrapper uploads, as uint32 arrays, in the
+    registers of the lanes that hold them (lane l = 4 g + t):
 
-    tabs: np.ndarray
-    lane_ops: np.ndarray
+    ``ops`` (steps, 4, 2, 32): B fragment register r of n-tile nt of the
+    data k-steps, the operator A of one mma row;
+    ``shift`` (4, 2, 32): the B fragments of the state k-step,
+    M^(4 step_words);
+    ``fin`` (warps, 16, 32): column of the state bit at A-fragment
+    position kappa of row r's final operator, warp by warp;
+    ``ladder`` (32, 32): rung j is M^(4 segment words 2^j) by columns."""
+
+    ops: np.ndarray
+    shift: np.ndarray
+    fin: np.ndarray
     ladder: np.ndarray
 
 
-@functools.lru_cache(maxsize=None)
-def _thread_tables() -> tuple[np.ndarray, np.ndarray]:
-    """(tabs, lane_ops): the tables that depend on CRC_THREADS only."""
-    T = CRC_THREADS
-    op4 = _zero_operator(4)
-    cols = np.array([1 << b for b in range(32)], dtype=np.uint64)
-    lane = np.zeros((32, T), dtype=np.uint64)
-    for d in range(1, T + 1):  # cols = M^(4d)
-        cols = _apply(op4, cols)
-        lane[:, T - d] = cols
-    vals = (np.arange(256, dtype=np.uint64)[None, :]
-            << (8 * np.arange(4, dtype=np.uint64))[:, None])
-    tabs = _apply(cols, vals)  # cols = M^(4T) now
-    return tabs.astype(np.uint32), lane.astype(np.uint32)
+@functools.lru_cache(maxsize=4096)
+def _shift_cols(nbytes: int) -> np.ndarray:
+    """M^nbytes by columns as uint64, a product of the pow2 ladder."""
+    ops = _pow2_zero_ops()
+    out = np.array([1 << b for b in range(32)], dtype=np.uint64)
+    j = 0
+    while nbytes:
+        if nbytes & 1:
+            out = _apply(ops[j], out)
+        nbytes >>= 1
+        j += 1
+    return out
 
 
-@functools.lru_cache(maxsize=16)
-def kernel_tables(k_words: int) -> KernelTables:
-    """The tables of crc32c_chunks for runs of ``k_words`` words."""
-    tabs, lane = _thread_tables()
-    ladder = [_zero_operator(4 * CRC_THREADS * k_words)]
+def _bit(cols: np.ndarray, out_bit, in_bit) -> np.ndarray:
+    """Entry (out_bit, in_bit) of operators given by columns: cols[...,
+    in_bit] >> out_bit & 1, broadcast."""
+    return (np.take_along_axis(cols, np.asarray(in_bit)[..., None], -1)[..., 0]
+            >> np.asarray(out_bit, dtype=np.uint64)) & np.uint64(1)
+
+
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3
+#: output bit of column n of n-tile nt, and the state bit packed into
+#: A-fragment position kappa (csrc/crc32c.cu low_bytes): kappa = 16 r + 4 t
+#: + e holds C(n-tile 2 r + e // 2, column 2 t + e % 2)
+_KAPPA = np.arange(32)
+_KAPPA_BIT = (8 * (2 * (_KAPPA >> 4) + ((_KAPPA & 3) >> 1))
+              + 2 * ((_KAPPA >> 2) & 3) + (_KAPPA & 1))
+
+
+def _bytes_word(vals: np.ndarray) -> np.ndarray:
+    """(..., 4) 0/1 values -> (...,) uint32, value e in byte e."""
+    return (vals.astype(np.uint64)
+            << (8 * np.arange(4, dtype=np.uint64))).sum(-1).astype(np.uint32)
+
+
+def _data_exponent(geo: CrcGeometry, p, t, v):
+    """Words from the word of load p, lane-in-quad t, pair v to one past
+    its row's last word: the power (in words) of M^4 A applies to it."""
+    V, Lp = geo.words, geo.loads
+    return 32 * V * (Lp - 1 - p) + 4 * V - 1 - V * t - 2 * v
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_tables(iters: int, geo: CrcGeometry = CRC_GEOMETRY
+                  ) -> KernelTables:
+    """The tables of crc32c_chunks at ``geo`` for segments of ``iters``
+    Horner steps."""
+    V, Lp, NW = geo.words, geo.loads, geo.warps
+    nt = np.arange(4)[:, None, None]
+    reg = np.arange(2)[None, :, None]
+    out_bit = 8 * nt + _G[None, None, :]            # (4, 1, 32)
+    e = np.arange(4)
+    ops = np.zeros((geo.steps, 4, 2, 32), dtype=np.uint32)
+    for p in range(Lp):
+        if geo.b1:
+            # register r of lane t' holds word (t', v = r) of the row;
+            # bit beta of it pairs with bit beta of the data register
+            expo = _data_exponent(geo, p, _T[None, None, :], reg)
+            cols = np.stack([_shift_cols(4 * int(x)) for x in
+                             expo.reshape(-1)]).reshape(1, 2, 32, 32)
+            beta = np.arange(32, dtype=np.uint64)
+            rows = (cols[..., None, :] >> out_bit[..., None, None]
+                    .astype(np.uint64)) & np.uint64(1)  # (4,2,32,1,32)
+            ops[p] = (rows[..., 0, :] << beta).sum(-1).astype(np.uint32)
+            continue
+        for v in range(V // 2):
+            expo = _data_exponent(geo, p, _T, v)     # (32,)
+            cols = np.stack([_shift_cols(4 * int(x)) for x in expo])
+            for j in range(4):
+                s = (p * (V // 2) + v) * 4 + j
+                # byte e of register r: input bit j + 4 r + 8 e
+                in_bit = j + 4 * reg[..., None] + 8 * e   # (1, 2, 1, 4)
+                vals = _bit(np.broadcast_to(cols[None, None, :, None, :],
+                                            (4, 2, 32, 4, 32)),
+                            out_bit[..., None], np.broadcast_to(
+                                in_bit, (4, 2, 32, 4)))
+                ops[s] = _bytes_word(vals)
+    # the state k-step: byte e of register r of lane (g', t') pairs with
+    # kappa = 16 r + 4 t' + e
+    cols = _shift_cols(4 * geo.step_words)
+    kappa = 16 * reg[..., None] + 4 * _T[None, None, :, None] + e  # (1,2,32,4)
+    vals = _bit(np.broadcast_to(cols, (4, 2, 32, 4, 32)), out_bit[..., None],
+                np.broadcast_to(_KAPPA_BIT[kappa], (4, 2, 32, 4)))
+    shift = _bytes_word(vals)
+    # the final operators: row r = g + 8 h of warp w ends this far (in
+    # words) before the segment's end, less one
+    w = np.arange(NW)[:, None]
+    r = np.arange(16)[None, :]
+    expo = (32 * V * Lp * (NW - 1 - w) + 28 * V + 1 - 4 * V * (r & 7)
+            - (r >> 3))
+    fin = np.stack([_shift_cols(4 * int(x)) for x in expo.reshape(-1)]
+                   )[:, _KAPPA_BIT].reshape(NW, 16, 32).astype(np.uint32)
+    ladder = [_shift_cols(4 * iters * geo.step_words)]
     for _ in range(31):
         ladder.append(_compose(ladder[-1], ladder[-1]))
-    return KernelTables(tabs=tabs, lane_ops=lane,
+    return KernelTables(ops=ops, shift=shift, fin=fin,
                         ladder=np.stack(ladder).astype(np.uint32))
 
 
@@ -347,16 +461,21 @@ _DEV_TABLES: dict[tuple, tuple[torch.Tensor, ...]] = {}
 _DEV_LOCK = threading.Lock()
 
 
-def _device_tables(device: torch.device, k_words: int):
-    """kernel_tables(k_words) as int32 tensors on ``device``, uploaded
-    once per device and run length."""
-    key = (device, k_words)
+def device_tables(device: torch.device, iters: int,
+                  geo: CrcGeometry = CRC_GEOMETRY):
+    """kernel_tables(iters, geo) as int32 tensors on ``device`` (ops,
+    shift, fin, ladder), uploaded once per device, length and setting,
+    landed before any stream reads them."""
+    from ..utils import staging
+
+    key = (device, iters, geo)
     with _DEV_LOCK:
         hit = _DEV_TABLES.get(key)
     if hit is None:
-        t = kernel_tables(k_words)
-        hit = tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
-                    .to(device) for a in (t.tabs, t.lane_ops, t.ladder))
+        t = kernel_tables(iters, geo)
+        hit = staging.upload_tables(
+            [np.ascontiguousarray(a).view(np.int32)
+             for a in (t.ops, t.shift, t.fin, t.ladder)], device)
         with _DEV_LOCK:
             hit = _DEV_TABLES.setdefault(key, hit)
     return hit
@@ -368,8 +487,8 @@ def crc32c_chunks(words: torch.Tensor, plan: CrcPlan) -> torch.Tensor:
     CRC32C.
 
     On a CPU tensor it runs the plain version.  On a CUDA tensor it
-    launches ``crc32c_chunks`` and needs contiguous, 4-byte aligned
-    words; anything else raises."""
+    launches ``crc32c_chunks`` on the current stream and needs
+    contiguous, 4-byte aligned words; anything else raises."""
     if words.dtype not in (torch.int32, torch.uint32):
         raise TypeError(f"crc32c_chunks: want int32/uint32 words, got "
                         f"{words.dtype}")
@@ -386,16 +505,16 @@ def crc32c_chunks(words: torch.Tensor, plan: CrcPlan) -> torch.Tensor:
                          "words")
     from . import cuda_lib, ec_kernels
 
-    k_words, segs, pad = kernel_split(plan.n_words)
-    tabs, lane_ops, ladder = _device_tables(words.device, k_words)
+    iters, segs, pad = kernel_split(plan.n_words)
+    ops, shift, fin, ladder = device_tables(words.device, iters)
     q = words.shape[0]
     y = torch.empty((q,), dtype=torch.int32, device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = cuda_lib.lib().crc32c_chunks(
-            words.data_ptr(), y.data_ptr(), tabs.data_ptr(),
-            lane_ops.data_ptr(), ladder.data_ptr(), q, plan.n_words,
-            k_words, segs, pad, int(plan.final_xor), stream)
+            words.data_ptr(), y.data_ptr(), ops.data_ptr(), shift.data_ptr(),
+            fin.data_ptr(), ladder.data_ptr(), q, plan.n_words, iters, segs,
+            pad, int(plan.final_xor), stream)
     cuda_lib.check(err, "crc32c_chunks launch")
     ec_kernels._count("crc32c_chunks")
     return y.view(torch.uint32)

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "gf_bitterm": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
     "gf_bitxor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
     "gf_sched_xor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
-    "crc32c_chunks": (_I, [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
+    "crc32c_chunks": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
                            ctypes.c_uint32, _P]),
     "gf_smem_optin": (_I, [ctypes.POINTER(_I)]),
     "gf_error_string": (ctypes.c_char_p, [_I]),

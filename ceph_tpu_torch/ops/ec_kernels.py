@@ -779,18 +779,18 @@ class RegionMatmul(_LaneOp):
     def _device_state(self):
         """K1's (coef, tab) or K2's (ptr, idx, BitxorPlan) on the card,
         built at first use."""
+        from ..utils import staging
+
         with self._cache_lock:
             if self._dev_state is None:
                 dev = self.device
                 if self.kernel == "pallas":
-                    self._dev_state = (
-                        torch.from_numpy(self.M.copy()).to(dev),
-                        torch.from_numpy(nibble_table(self.M)).to(dev))
+                    self._dev_state = staging.upload_tables(
+                        (self.M, nibble_table(self.M)), dev)
                 else:
                     plan = bitxor_plan(self.M)
-                    self._dev_state = (torch.from_numpy(plan.ptr).to(dev),
-                                       torch.from_numpy(plan.idx).to(dev),
-                                       plan)
+                    self._dev_state = staging.upload_tables(
+                        (plan.ptr, plan.idx), dev) + (plan,)
             return self._dev_state
 
     def _lanes_op(self, x32: torch.Tensor, out32=None) -> torch.Tensor:
@@ -833,12 +833,13 @@ class ScheduledXor(_LaneOp):
 
     def _device_state(self):
         """(ptr, entries, SchedXorPlan) on the card, built at first use."""
+        from ..utils import staging
+
         with self._cache_lock:
             if self._dev_state is None:
                 plan = sched_xor_plan(self.B, self.w)
-                self._dev_state = (
-                    torch.from_numpy(plan.ptr).to(self.device),
-                    torch.from_numpy(plan.entries).to(self.device), plan)
+                self._dev_state = staging.upload_tables(
+                    (plan.ptr, plan.entries), self.device) + (plan,)
             return self._dev_state
 
     def _lanes_op(self, x32: torch.Tensor) -> torch.Tensor:

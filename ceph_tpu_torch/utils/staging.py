@@ -15,10 +15,17 @@ and ``.to(device, non_blocking=True)`` (a non_blocking copy from pageable
 memory is synchronous), and copies are timed with CUDA events around
 them on the current stream.  On the CPU "device" a copy is a memcpy,
 timed on the host clock.
+
+Streams.  Nothing here waits for the whole card.  A launch waits for its
+own outputs (``wait_for``: an event on the stream that made them); a
+batcher flush runs on its thread's own stream (``FlushStreams``), after
+the events its ops' staging copies recorded (``record_ready``); tables
+that every stream reads land once before first use (``upload_tables``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -79,6 +86,98 @@ def note_d2h(nbytes: int, seconds: float, exemplar=None) -> None:
     pc.inc("ec_stage_d2h_bytes", int(nbytes))
     pc.inc("ec_stage_d2h_copies")
     pc.hinc("ec_stage_d2h_us", seconds * 1e6, exemplar=exemplar)
+
+
+def wait_for(tensors) -> None:
+    """Block until the work that made ``tensors`` is done: for each CUDA
+    device among them, one event recorded on its current stream (the
+    stream the op that made them ran on) and a wait on that event only,
+    never on the whole card.  CPU tensors and numpy arrays need none."""
+    seen = set()
+    for t in tensors:
+        if (isinstance(t, torch.Tensor) and t.device.type == "cuda"
+                and t.device not in seen):
+            seen.add(t.device)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            ev.synchronize()
+
+
+def record_ready(device):
+    """An event after the work queued so far on ``device``'s current
+    stream (an op's staging copies), for a flush on another stream to
+    wait on before it reads the staged bytes; None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def upload_tables(arrays, device) -> tuple[torch.Tensor, ...]:
+    """Read-only tables (numpy arrays) as tensors on ``device``, landed:
+    on a card, one event after the copies, synchronized once, so a
+    launch on any stream may read them.  They stay alive while the op
+    that holds them is referenced, and every launch waits for its
+    outputs before its caller lets go of the op."""
+    device = torch.device(device)
+    out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrays)
+    if device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        ev.synchronize()
+    return out
+
+
+class FlushStreams:
+    """A small pool of CUDA streams, one for each thread that flushes: a
+    thread takes the next stream of the pool at its first flush on a
+    device and keeps it, so flushes of different threads run on
+    different streams (beyond ``size`` threads, they share them in
+    turn)."""
+
+    def __init__(self, size: int = 8):
+        self._size = size
+        self._lock = threading.Lock()
+        self._pool: dict[torch.device, list] = {}
+        self._taken: dict[torch.device, int] = {}
+        self._local = threading.local()
+
+    def stream(self, device: torch.device):
+        """This thread's stream on ``device``."""
+        mine = getattr(self._local, "streams", None)
+        if mine is None:
+            mine = self._local.streams = {}
+        s = mine.get(device)
+        if s is None:
+            with self._lock:
+                pool = self._pool.setdefault(device, [])
+                n = self._taken.get(device, 0)
+                self._taken[device] = n + 1
+                if len(pool) < self._size:
+                    pool.append(torch.cuda.Stream(device=device))
+                s = pool[n % self._size]
+            mine[device] = s
+        return s
+
+    @contextlib.contextmanager
+    def flush(self, device: torch.device, waits=(), uses=()):
+        """Run the block on this thread's stream of ``device``, after the
+        events of ``waits`` (the staging copies of the flush's ops).
+        Each CUDA tensor of ``uses``, made on another stream, is marked as
+        used on this one (``record_stream``), so the caching allocator
+        does not hand its memory out again before this stream is done."""
+        s = self.stream(device)
+        with torch.cuda.stream(s):
+            for ev in waits:
+                if ev is not None:
+                    s.wait_event(ev)
+            for t in uses:
+                if t.is_cuda:
+                    t.record_stream(s)
+            yield s
 
 
 def _events(device: torch.device):

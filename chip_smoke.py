@@ -133,7 +133,8 @@ OBJECT_SIZE = 4 << 20  # the RADOS default object size
 CRC_KERNEL = ("crc32c_chunks", "crc32c_chunks",
               "ceph_tpu/ops/checksum.py:190",
               "ceph_tpu_torch/csrc/crc32c.cu")
-#: chunk lengths of the crc phase, each on CRC_ROWS rows of one chunk
+#: chunk lengths of the crc phase, each on CRC_ROWS rows of one chunk,
+#: beside crc_tail_lengths()
 CRC_LENGTHS = (4, 12, 508, 4096, 4100, 128 << 10, 1 << 20, (1 << 20) + 4)
 CRC_ROWS = (1, 11, 704)
 #: G1's main shape: the fused CRC of a 64-stripe k=8, m=3 batch of 1 MiB
@@ -413,8 +414,32 @@ def crc_bound_parts(rows: int, row_bytes: int, chunk: int
     return t_bytes * 1e3, t_ops * 1e3
 
 
-def phase_crc(dev: torch.device, lengths=CRC_LENGTHS, rows_list=CRC_ROWS,
-              main=CRC_MAIN, n_time: int = 30) -> dict:
+def crc_tail_lengths(geo: checksum.CrcGeometry = checksum.CRC_GEOMETRY
+                     ) -> tuple[int, ...]:
+    """Chunk lengths one word either side of the splits of G1 at ``geo``:
+    a warp's load (32 * words words), a block's Horner step and a whole
+    segment."""
+    out = []
+    for words in (32 * geo.words, geo.step_words, geo.iters * geo.step_words):
+        out += [4 * (words - 1), 4 * (words + 1)]
+    return tuple(out)
+
+
+def ptxas_lines(kernel: str) -> list[str]:
+    """The ptxas register and spill lines of the library build's entries
+    whose (mangled) name holds ``kernel``."""
+    out, keep = [], False
+    for ln in cuda_lib.BUILD_LOG.get("ptxas", "").splitlines():
+        if "Compiling entry" in ln:
+            keep = kernel in ln
+        if keep and any(w in ln for w in ("registers", "spill", "entry")):
+            out.append(ln.strip())
+    return out
+
+
+def phase_crc(dev: torch.device,
+              lengths=tuple(dict.fromkeys(CRC_LENGTHS + crc_tail_lengths())),
+              rows_list=CRC_ROWS, main=CRC_MAIN, n_time: int = 30) -> dict:
     """G1 against its plain version (equal digests) and against the
     native library's crc32c, at every length of ``lengths`` on each row
     count of ``rows_list`` (one chunk a row) and on all-zero and
@@ -422,6 +447,8 @@ def phase_crc(dev: torch.device, lengths=CRC_LENGTHS, rows_list=CRC_ROWS,
     beside the bound, the plain version and a device copy of the same
     bytes.  Returns G1's row of the kernels line."""
     name, _ctr, site, source = CRC_KERNEL
+    for ln in ptxas_lines("crc32c_mma_kernel"):
+        say("crc", f"ptxas: {ln}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
     cases = err = 0
@@ -469,14 +496,18 @@ def phase_crc(dev: torch.device, lengths=CRC_LENGTHS, rows_list=CRC_ROWS,
     t_bytes, t_ops = crc_bound_parts(rows, row_bytes, chunk)
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    k_words, segs, pad = checksum.kernel_split(chunk // 4)
+    geo = checksum.CRC_GEOMETRY
+    iters, segs, pad = checksum.kernel_split(chunk // 4)
     clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     say("crc", f"{name}: ({rows}, {row_bytes >> 20} MiB) in {chunk >> 10} "
-               f"KiB chunks ({segs} segments of {k_words} words a thread a "
-               f"chunk): {ms:.4f} ms = {rows * row_bytes / ms / 1e6:.1f} "
+               f"KiB chunks ({'binary' if geo.b1 else 'int8'} products, "
+               f"runs of {geo.run} words a row, {segs} segments of "
+               f"{iters} steps of {geo.step_words} words a chunk): "
+               f"{ms:.4f} ms = {rows * row_bytes / ms / 1e6:.1f} "
                f"GB/s, bound {bound_ms:.4f} ms ({bound_by}; bytes "
                f"{t_bytes:.4f}, operations {t_ops:.4f}), "
-               f"{ms / bound_ms:.2f}x the bound; plain {plain_ms:.3f} ms; a "
+               f"{ms / bound_ms:.2f}x the bound ({bound_ms / ms:.0%} of it); "
+               f"plain {plain_ms:.3f} ms; a "
                f"device copy moving the same bytes (half read, half "
                f"written) {copy_ms:.4f} ms; after "
                f"timing: {clocks}")
@@ -487,10 +518,10 @@ def phase_crc(dev: torch.device, lengths=CRC_LENGTHS, rows_list=CRC_ROWS,
 
 
 def _threads(n: int, target, *args) -> float:
-    """Run target(i, *args) in n threads started together; returns the
-    wall seconds.  Any exception of a thread is raised here."""
+    """Run target(i, *args) in n daemon threads started together; returns
+    the wall seconds.  Any exception of a thread is raised here."""
     errors = []
-    gate = threading.Barrier(n)
+    gate = threading.Barrier(n, timeout=600)
 
     def run(i):
         try:
@@ -499,7 +530,8 @@ def _threads(n: int, target, *args) -> float:
         except BaseException as e:  # noqa: BLE001 - raised below
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -519,6 +551,56 @@ def csum_launches() -> int:
     return sum(a["device"] + a["compile"] for sig, a in
                kernel_profiler().dump()["signatures"].items()
                if sig.startswith("csum/"))
+
+
+@contextlib.contextmanager
+def launch_records(records: list):
+    """Within the block, every launch of a matrix codec appends (thread,
+    CUDA stream, host seconds from its enqueue to its own outputs, its
+    CUDA events): the codecs' _profiled_launch with events around the op
+    on the stream it ran on (on the CPU: no stream and no events)."""
+    orig = MatrixErasureCode._profiled_launch
+
+    def recorded(self, op, rows, sig, events=None):
+        stream = None
+        if self.device.type == "cuda":
+            if events is None:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+        t0 = time.perf_counter()
+        out = orig(self, op, rows, sig, events)
+        records.append((threading.get_ident(), stream,
+                        time.perf_counter() - t0, events))
+        return out
+
+    MatrixErasureCode._profiled_launch = recorded
+    try:
+        yield
+    finally:
+        MatrixErasureCode._profiled_launch = orig
+
+
+def launch_summary(what: str, records: list) -> dict:
+    """Prints the launches of ``records`` (launch_records): their host
+    wall time beside the CUDA-event time of the ops, and the streams the
+    flushing threads used; returns {"threads", "streams", "shared"}, where
+    ``shared`` counts pairs of threads that launched on one stream."""
+    wall = sum(r[2] for r in records)
+    device = sum(r[3][0].elapsed_time(r[3][1]) for r in records
+                 if r[3] is not None) / 1e3
+    by_thread: dict[int, set] = {}
+    for thread, stream, _dt, _ev in records:
+        by_thread.setdefault(thread, set()).add(stream)
+    streams = set().union(*by_thread.values()) if by_thread else set()
+    shared = sum(1 for a, b in itertools.combinations(by_thread.values(), 2)
+                 if a & b)
+    say("write", f"{what}: {len(records)} launches, {wall:.4f} s host wall "
+                 f"(enqueue to own outputs) beside {device:.4f} s of CUDA "
+                 f"events around the ops; {len(by_thread)} flushing threads "
+                 f"on {len(streams)} streams, {shared} pairs sharing one")
+    return {"threads": len(by_thread), "streams": len(streams),
+            "shared": shared, "wall": wall, "device": device}
 
 
 @contextlib.contextmanager
@@ -630,7 +712,8 @@ def phase_write(dev: torch.device, rng: np.random.Generator, *,
             parity[i], csums[i] = batcher.encode(codec, data[i],
                                                  with_csums=True)
 
-    with counted_sweeps(sweeps):
+    write_launches = []
+    with counted_sweeps(sweeps), launch_records(write_launches):
         write_s = _threads(writers, write)
     enc = dict(batcher.stats)
     d2h1 = stage.get("ec_stage_d2h_copies")
@@ -655,8 +738,11 @@ def phase_write(dev: torch.device, rng: np.random.Generator, *,
                  f"{perf.get('ec_batch_window_us_now')} us; "
                  f"{n * k * chunk / write_s / 1e9:.3f} GB/s of data "
                  f"({write_s:.3f} s)")
-    with counted_sweeps(sweeps):
+    streams = launch_summary("writes", write_launches)
+    mixed_launches = []
+    with counted_sweeps(sweeps), launch_records(mixed_launches):
         mixed = mixed_writes(codec, rng, writers=writers, chunk=chunk)
+    launch_summary("mixed writes", mixed_launches)
 
     arena = ec.DeviceArena(device=dev)
     avail = [i for i in range(k + m) if i not in erased]
@@ -673,7 +759,9 @@ def phase_write(dev: torch.device, rng: np.random.Generator, *,
             decoded[i] = batcher.decode(codec, list(erased), chunks)
 
     d2h_read = stage.get("ec_stage_d2h_copies")
-    read_s = _threads(writers, read)
+    read_launches = []
+    with launch_records(read_launches):
+        read_s = _threads(writers, read)
     dec = {key: batcher.stats[key] - enc[key] for key in enc}
     for i in range(n):
         full = np.concatenate([data[i], parity[i]])
@@ -688,6 +776,7 @@ def phase_write(dev: torch.device, rng: np.random.Generator, *,
                  f"({read_s:.3f} s); arena "
                  f"{stage.get('ec_arena_bytes') >> 20} MiB held, "
                  f"{stage.get('ec_arena_evictions')} evictions")
+    launch_summary("degraded reads", read_launches)
 
     d2h2 = stage.get("ec_stage_d2h_copies")
     rows = np.ascontiguousarray(data[:scrub_rows // k].reshape(-1, chunk))
@@ -706,7 +795,8 @@ def phase_write(dev: torch.device, rng: np.random.Generator, *,
                  f"{bad} singled out")
     return {"encode": enc, "decode": dec, "sweeps": len(sweeps),
             "d2h_encode": d2h1 - d2h0, "d2h_decode": d2h2 - d2h_read,
-            "csum_launches": csum_written, "mixed": mixed}
+            "csum_launches": csum_written, "mixed": mixed,
+            "streams": streams}
 
 
 def check_write_path(counts: dict[str, int], result: dict,
@@ -716,7 +806,8 @@ def check_write_path(counts: dict[str, int], result: dict,
     ``csum/`` launches, less ``csum_before`` from earlier paths, are one
     per encode flush); every flush of the mixed writes launched G1 once
     a length and no fused op; no host CRC sweep ran; every encode and
-    decode flush left the card in exactly one metered copy."""
+    decode flush left the card in exactly one metered copy; the writers'
+    flushes ran on more than one stream, no two threads on one."""
     say("launches", f"write path: {json.dumps(counts)}")
     if counts[CRC_KERNEL[1]] <= 0:
         raise AssertionError(f"{CRC_KERNEL[1]} never launched on the "
@@ -747,6 +838,11 @@ def check_write_path(counts: dict[str, int], result: dict,
             f"{enc['launches']} encode flushes, {mixed['d2h']} for "
             f"{mixed['launches']} mixed ones, {result['d2h_decode']} for "
             f"{dec['launches']} decode flushes")
+    st = result["streams"]
+    if st["streams"] < 2 or st["shared"]:
+        raise AssertionError(
+            f"the writers' flushes ran on {st['streams']} streams from "
+            f"{st['threads']} threads, {st['shared']} pairs sharing one")
     say("launches", f"write path: {enc['launches']} encode flushes all "
                     f"fused, {mixed['launches']} of mixed lengths with "
                     f"{mixed['g1']} G1 launches, one device-to-host copy "

@@ -2,13 +2,21 @@
 package on the same seeded inputs: the plain version of CrcPlan.device_fn
 against the jitted JAX graph and the native library, the host operator
 algebra, the fused encode+CRC graph, and a numpy replay of the CUDA
-kernel's host half (its tables and its segment and thread split).  Every
+kernel (its split, tables, fragment layouts, integer products and
+packing), at the library's setting and at the settings the variant race
+runs.  Every
 comparison is exact (tolerance 0): CRC32C is integer math."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 from ceph_tpu.models.stripe_codec import StripeCodec as JaxStripeCodec
 from ceph_tpu.ops import checksum as jax_checksum
 from ceph_tpu.ops import native as jax_native
@@ -22,8 +30,6 @@ torch.set_num_threads(1)
 #: the lengths of tests/test_checksum.py, and 4100 (not a power of two
 #: of words, and just past a 4 KiB chunk)
 LENGTHS = (4, 8, 12, 100, 4096, 4100, 12288, 65536)
-#: the crc phase's chunk lengths up to 64 KiB + 4, and a two-segment one
-EMU_LENGTHS = (4, 12, 508, 4096, 4100, 32 * 1024 + 4, 64 * 1024 + 4)
 
 
 def _rows(seed: int, n: int, nbytes: int) -> np.ndarray:
@@ -117,40 +123,131 @@ def test_fused_encode_csum_graph_equals_jax():
 # the CUDA kernel's host half, replayed in numpy
 # ---------------------------------------------------------------------------
 
-def _emulate_crc32c_chunks(rows: np.ndarray, nbytes: int) -> np.ndarray:
-    """crc32c_chunks as csrc/crc32c.cu walks it, on the tables the
-    wrapper uploads: the zero prefix, segments of T * K words, thread t
-    on words t + T u with s <- M^(4T) s ^ w by byte lookups, the
-    thread operators, the XOR over the block, the ladder shift of each
-    segment and final_xor on segment 0."""
-    n_words = nbytes // 4
-    words = np.ascontiguousarray(rows).view("<u4").reshape(
-        -1, n_words).astype(np.uint64)
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3
+#: the settings of experiments/crc_variants.py beside the library's
+RACE_GEOMETRIES = (checksum.CrcGeometry(False, 4, 1, 8, 32),
+                   checksum.CrcGeometry(False, 2, 1, 8, 32),
+                   checksum.CrcGeometry(True, 4, 1, 8, 64),
+                   checksum.CrcGeometry(True, 4, 2, 8, 32),
+                   checksum.CrcGeometry(True, 4, 4, 4, 32))
+
+
+def _elements(regs: np.ndarray, b1: bool) -> np.ndarray:
+    """(..., n) uint32 registers -> (..., n, W) int64 elements: 32 bits
+    (binary) or 4 signed bytes (int8), element x of a register first."""
+    regs = np.ascontiguousarray(regs, dtype=np.uint32)
+    if b1:
+        return ((regs.astype(np.uint64)[..., None]
+                 >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+                ).astype(np.int64)
+    return regs.view(np.int8).reshape(regs.shape + (4,)).astype(np.int64)
+
+
+def _frag_a(regs: np.ndarray, b1: bool) -> np.ndarray:
+    """(..., 32 lanes, 4) A registers -> (..., 16, K): register i of lane
+    (g, t) holds row g + 8 (i % 2) at columns K/2 (i // 2) + W t + x."""
+    el = _elements(regs, b1)
+    W = el.shape[-1]
+    K = 8 * W
+    A = np.zeros(regs.shape[:-2] + (16, K), dtype=np.int64)
+    for i in range(4):
+        for x in range(W):
+            A[..., _G + 8 * (i & 1), K // 2 * (i >> 1) + W * _T + x] = \
+                el[..., :, i, x]
+    return A
+
+
+def _frag_b(regs: np.ndarray, b1: bool) -> np.ndarray:
+    """(2, 32 lanes) B registers -> (K, 8): register r of lane (g, t)
+    holds column g at rows K/2 r + W t + x."""
+    el = _elements(regs.T, b1)
+    W = el.shape[-1]
+    K = 8 * W
+    B = np.zeros((K, 8), dtype=np.int64)
+    for r in range(2):
+        for x in range(W):
+            B[K // 2 * r + W * _T + x, _G] = el[:, r, x]
+    return B
+
+
+def _mma(acc: np.ndarray, a_regs: np.ndarray, b_regs: np.ndarray,
+         b1: bool) -> None:
+    """acc (..., 4 n-tiles, 32 lanes, 4) += A B for each n-tile, in the
+    C layout: c0, c1 row g columns 2t, 2t + 1; c2, c3 row g + 8."""
+    A = _frag_a(a_regs, b1)
+    for nt in range(4):
+        D = A @ _frag_b(b_regs[nt], b1)
+        acc[..., nt, :, :] += np.stack(
+            [D[..., _G, 2 * _T], D[..., _G, 2 * _T + 1],
+             D[..., _G + 8, 2 * _T], D[..., _G + 8, 2 * _T + 1]], -1)
+
+
+def _low_bytes(a, b, c, d) -> np.ndarray:
+    """byte_perm of the low bytes of four accumulators."""
+    return ((a & 0xFF) | (b & 0xFF) << 8 | (c & 0xFF) << 16
+            | (d & 0xFF) << 24).astype(np.uint32)
+
+
+def _emulate_crc32c_chunks(rows: np.ndarray, nbytes: int,
+                           geo=checksum.CRC_GEOMETRY) -> np.ndarray:
+    """crc32c_chunks as csrc/crc32c.cu computes it at ``geo``, on the
+    tables the wrapper uploads: the zero prefix and the split into
+    segments of Horner steps, each lane's loads, the unpack (w >> j, no
+    mask, as signed bytes) or the raw words (binary), the integer mma in
+    the fragment layouts, the state k-step, the low-byte packing into the
+    next A fragment, the final operators on each lane's state bits, the
+    XOR over lanes and warps, the ladder shift of each segment and
+    final_xor on segment 0."""
+    n = nbytes // 4
+    words = np.ascontiguousarray(rows).view("<u4").reshape(-1, n)
     q = words.shape[0]
-    T = checksum.CRC_THREADS
-    k, segs, pad = checksum.kernel_split(n_words)
-    tables = checksum.kernel_tables(k)
-    padded = np.concatenate([np.zeros((q, pad), np.uint64), words], axis=1)
-    w = padded.reshape(q, segs, k, T)
-    tabs = tables.tabs.astype(np.uint64)
-    s = np.zeros((q, segs, T), np.uint64)
-    for u in range(k):
-        a = np.zeros_like(s)
-        for n in range(4):
-            a ^= tabs[n][(s >> np.uint64(8 * n)) & np.uint64(255)]
-        s = a ^ w[:, :, u, :]
-    lane = tables.lane_ops.astype(np.uint64)
-    v = np.zeros_like(s)
-    for j in range(32):
-        v ^= np.where((s >> np.uint64(j)) & np.uint64(1), lane[j],
-                      np.uint64(0))
-    raw = np.bitwise_xor.reduce(v, axis=2)
+    iters, segs, pad = checksum.kernel_split(n, geo)
+    tb = checksum.kernel_tables(iters, geo)
+    V, Lp, NW = geo.words, geo.loads, geo.warps
+    x = np.concatenate([np.zeros((q, pad), np.uint32), words], axis=1)
+    x = x.reshape(q, segs, iters, NW, Lp, 32, V)
+    st = np.zeros((q, segs, NW, 32, 4), np.uint32)
+    for it in range(iters):
+        acc = np.zeros((q, segs, NW, 4, 32, 4), np.int64)
+        if it:
+            _mma(acc, st, tb.shift, geo.b1)
+        for p in range(Lp):
+            d = x[:, :, it, :, p]
+            if geo.b1:
+                _mma(acc, d, tb.ops[p], True)
+                continue
+            for v in range(V // 2):
+                lo, hi = d[..., 2 * v], d[..., 2 * v + 1]
+                for j in range(4):
+                    a = np.stack([lo >> j, hi >> j, lo >> (j + 4),
+                                  hi >> (j + 4)], -1)
+                    _mma(acc, a, tb.ops[(p * (V // 2) + v) * 4 + j], False)
+        c = acc
+        st = np.stack([
+            _low_bytes(c[..., 0, :, 0], c[..., 0, :, 1], c[..., 1, :, 0],
+                       c[..., 1, :, 1]),
+            _low_bytes(c[..., 0, :, 2], c[..., 0, :, 3], c[..., 1, :, 2],
+                       c[..., 1, :, 3]),
+            _low_bytes(c[..., 2, :, 0], c[..., 2, :, 1], c[..., 3, :, 0],
+                       c[..., 3, :, 1]),
+            _low_bytes(c[..., 2, :, 2], c[..., 2, :, 3], c[..., 3, :, 2],
+                       c[..., 3, :, 3])], -1)
+    fin = tb.fin.astype(np.uint64)
+    v = np.zeros((q, segs, NW, 32), np.uint64)
+    for i in range(4):
+        for e in range(4):
+            col = fin[np.arange(NW)[:, None], (_G + 8 * (i & 1))[None, :],
+                      (16 * (i >> 1) + 4 * _T + e)[None, :]]
+            bit = (st[..., i] >> (8 * e)) & 1
+            v ^= np.where(bit == 1, col, np.uint64(0))
+    raw = np.bitwise_xor.reduce(np.bitwise_xor.reduce(v, -1), -1)
     out = np.zeros(q, np.uint64)
     for seg in range(segs):
         r, d, j = raw[:, seg], segs - 1 - seg, 0
         while d:
             if d & 1:
-                r = checksum._apply(tables.ladder[j], r)
+                r = checksum._apply(tb.ladder[j], r)
             d >>= 1
             j += 1
         out ^= r
@@ -158,53 +255,124 @@ def _emulate_crc32c_chunks(rows: np.ndarray, nbytes: int) -> np.ndarray:
     return (out ^ final).astype(np.uint32)
 
 
+def _split_lengths(geo=checksum.CRC_GEOMETRY) -> list[int]:
+    """One word, and one word either side of a warp's load, a Horner
+    step of the block and a whole segment."""
+    out = [4]
+    for w in (32 * geo.words, geo.step_words, geo.iters * geo.step_words):
+        out += [4 * (w - 1), 4 * (w + 1)]
+    return out
+
+
+#: chip_smoke's crc lengths and the lengths about the kernel's split
+EMU_LENGTHS = sorted(set(chip_smoke.CRC_LENGTHS) | set(_split_lengths()))
+
+
+def _emu_rows(nbytes: int) -> np.ndarray:
+    """Two chunks a row on two rows: random, then zeros and 0xFF."""
+    rows = _rows(nbytes + 1, 2, 2 * nbytes)
+    rows[1, :nbytes] = 0
+    rows[1, nbytes:] = 255
+    return rows
+
+
 @pytest.mark.parametrize("nbytes", EMU_LENGTHS)
 def test_kernel_emulation_equals_reference_crc(nbytes):
-    rows = _rows(nbytes + 1, 3, 2 * nbytes)
-    rows[1] = 0
-    rows[2] = 255
+    import jax
+
+    rows = _emu_rows(nbytes)
     got = _emulate_crc32c_chunks(rows, nbytes)
-    want = [jax_native.crc32c(bytes(r[i * nbytes:(i + 1) * nbytes]))
-            for r in rows for i in range(2)]
+    chunks = rows.reshape(-1, nbytes)
+    want = [jax_native.crc32c(bytes(c)) for c in chunks]
     assert got.tolist() == want
-    if nbytes <= 4100:  # the pure-Python reference is slow
-        assert got[0] == jax_checksum.crc32c_ref(bytes(rows[0, :nbytes]))
+    graph = np.asarray(jax.jit(jax_checksum.CrcPlan(nbytes).device_fn())(
+        chunks.view(np.uint32)))
+    assert graph.tolist() == want
 
 
-def test_kernel_split_covers_chunks_exactly():
-    """Whole segments, a prefix shorter than a segment, K a power of two
-    up to CRC_MAX_RUN, and one segment for a chunk that fits one."""
-    T = checksum.CRC_THREADS
-    for n_words in (1, 3, 127, 255, 256, 257, 1025, 4096, 4097, 32768,
-                    262_145):
-        k, segs, pad = checksum.kernel_split(n_words)
-        assert k & (k - 1) == 0 and 1 <= k <= checksum.CRC_MAX_RUN
-        assert segs * T * k - pad == n_words and 0 <= pad < T * k
-        if n_words <= T * checksum.CRC_MAX_RUN:
+@pytest.mark.parametrize("geo", RACE_GEOMETRIES, ids=str)
+@pytest.mark.parametrize("nbytes", [4, 4100, 32 * 1024 + 4])
+def test_race_settings_emulate_the_reference_crc(geo, nbytes):
+    """The settings crc_variants.py races compute the same CRC on their
+    own tables and split."""
+    rows = _emu_rows(nbytes)
+    got = _emulate_crc32c_chunks(rows, nbytes, geo)
+    assert got.tolist() == [native.crc32c(c)
+                            for c in rows.reshape(-1, nbytes)]
+
+
+@pytest.mark.parametrize("geo", (checksum.CRC_GEOMETRY,) + RACE_GEOMETRIES,
+                         ids=str)
+def test_kernel_split_covers_chunks_exactly(geo):
+    """Whole segments of Horner steps, a prefix shorter than a segment,
+    at most geo.iters steps a segment, one segment for a chunk that fits
+    one, and the 128 KiB chunk of the main shape in whole segments of
+    geo.iters steps."""
+    for n_words in (1, 3, 127, 255, 256, 257, 1023, 1025, 4096, 4097,
+                    8191, 8193, 32768, 262_145):
+        iters, segs, pad = checksum.kernel_split(n_words, geo)
+        seg = iters * geo.step_words
+        assert 1 <= iters <= geo.iters
+        assert segs * seg - pad == n_words and 0 <= pad < seg
+        if n_words <= geo.iters * geo.step_words:
             assert segs == 1
-    assert checksum.kernel_split(32768) == (32, 4, 0)  # a 128 KiB chunk
+        else:
+            assert iters == geo.iters
+    iters, segs, pad = checksum.kernel_split(32768, geo)
+    assert (iters, pad) == (geo.iters, 0)
+    assert segs * geo.iters * geo.step_words == 32768
 
 
-def test_kernel_tables_are_the_operators():
-    """tabs is M^(4T) by bytes, lane_ops[:, t] is M^(4 (T - t)), the
-    ladder rung j is M^(4 T K 2^j) — each checked against the
-    reference's _zero_operator."""
-    T = checksum.CRC_THREADS
-    t = checksum.kernel_tables(16)
-    full = jax_checksum._zero_operator(4 * T)
-    for n in range(4):
-        for x in (1, 5, 255):
-            assert int(t.tabs[n, x]) == int(checksum._apply(full, x << 8 * n))
-    for tt in (0, 1, 100, T - 1):
-        assert np.array_equal(t.lane_ops[:, tt],
-                              jax_checksum._zero_operator(4 * (T - tt))
-                              .astype(np.uint32))
-    assert np.array_equal(t.ladder[0],
-                          jax_checksum._zero_operator(4 * T * 16)
-                          .astype(np.uint32))
-    assert np.array_equal(t.ladder[2],
-                          jax_checksum._zero_operator(4 * T * 16 * 4)
-                          .astype(np.uint32))
+@pytest.mark.parametrize("geo", (checksum.CRC_GEOMETRY,) + RACE_GEOMETRIES,
+                         ids=str)
+def test_kernel_tables_are_the_operators(geo):
+    """Each table entry against the reference's _zero_operator: a data
+    operator's element is entry (output bit, input bit) of M^(4 E) for
+    the word it meets, the shift operator is M^(4 step_words) on the
+    packed state bits, fin[w, r] is M^(4 (distance to the segment end))
+    by the state bits' positions, and ladder rung j is M^(4 segment
+    words 2^j)."""
+    V, Lp, NW = geo.words, geo.loads, geo.warps
+    t = checksum.kernel_tables(2, geo)
+
+    def op(words):
+        return jax_checksum._zero_operator(4 * words).astype(np.uint64)
+
+    def entry(m, out_bit, in_bit):
+        return int(m[in_bit]) >> out_bit & 1
+
+    def state_bit(kappa):
+        r, tt, e = kappa >> 4, (kappa >> 2) & 3, kappa & 3
+        return 8 * (2 * r + (e >> 1)) + 2 * tt + (e & 1)
+
+    for nt, r, lane in ((0, 0, 0), (1, 1, 5), (3, 0, 18), (2, 1, 31)):
+        g, tt = lane >> 2, lane & 3
+        o = 8 * nt + g
+        for p in range(Lp):
+            if geo.b1:
+                m = op(32 * V * (Lp - 1 - p) + 4 * V - 1 - V * tt - 2 * r)
+                want = sum(entry(m, o, b) << b for b in range(32))
+                assert int(t.ops[p, nt, r, lane]) == want
+                continue
+            for v in range(V // 2):
+                m = op(32 * V * (Lp - 1 - p) + 4 * V - 1 - V * tt - 2 * v)
+                for j in (0, 3):
+                    want = sum(entry(m, o, j + 4 * r + 8 * e) << 8 * e
+                               for e in range(4))
+                    s = (p * (V // 2) + v) * 4 + j
+                    assert int(t.ops[s, nt, r, lane]) == want
+        m = op(geo.step_words)
+        want = sum(entry(m, o, state_bit(16 * r + 4 * tt + e)) << 8 * e
+                   for e in range(4))
+        assert int(t.shift[nt, r, lane]) == want
+    for w, row in ((0, 0), (NW - 1, 15), (1, 9)):
+        g, h = row & 7, row >> 3
+        m = op(32 * V * Lp * (NW - 1 - w) + 28 * V + 1 - 4 * V * g - h)
+        for kappa in (0, 7, 21, 31):
+            assert int(t.fin[w, row, kappa]) == int(m[state_bit(kappa)])
+    seg = 2 * geo.step_words
+    assert np.array_equal(t.ladder[0], op(seg).astype(np.uint32))
+    assert np.array_equal(t.ladder[2], op(4 * seg).astype(np.uint32))
 
 
 def test_chunk_csums_digest_every_chunk():

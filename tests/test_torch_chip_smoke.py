@@ -188,7 +188,8 @@ def _passing_write():
               "sweeps": 0, "d2h_encode": 30, "d2h_decode": 25,
               "csum_launches": 30,
               "mixed": {"launches": 2, "lengths": 4, "g1": 8,
-                        "csum_launches": 0, "d2h": 2}}
+                        "csum_launches": 0, "d2h": 2},
+              "streams": {"threads": 8, "streams": 8, "shared": 0}}
     return counts, result
 
 
@@ -196,7 +197,8 @@ def _passing_write():
                                    "host sweep", "unfused flush",
                                    "two copies", "decode copies",
                                    "mixed flush fused", "mixed G1 short",
-                                   "mixed copies", "no mixed flush"])
+                                   "mixed copies", "no mixed flush",
+                                   "one stream", "threads share a stream"])
 def test_write_path_check_refuses_each_fault(fault):
     counts, result = _passing_write()
     chip_smoke.check_write_path(counts, result)
@@ -218,6 +220,10 @@ def test_write_path_check_refuses_each_fault(fault):
         result["mixed"]["g1"] = 2
     elif fault == "mixed copies":
         result["mixed"]["d2h"] = 3
+    elif fault == "one stream":
+        result["streams"].update(streams=1, shared=28)
+    elif fault == "threads share a stream":
+        result["streams"].update(streams=7, shared=1)
     else:
         result["mixed"].update(launches=0, g1=0, d2h=0)
     with pytest.raises(AssertionError):

@@ -57,7 +57,9 @@ def _run(fns, stagger=0.0):
         except Exception as e:  # noqa: BLE001 - surfaced below
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=(i,))
+    # daemon threads: a thread stuck past the join below fails the test
+    # and cannot keep the worker process from exiting
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
                for i in range(len(fns))]
     threads[0].start()
     time.sleep(stagger)
@@ -424,7 +426,7 @@ def _burst_both(port_fn, ref_fn, n):
     (port results, reference results)."""
     out = []
     for fn in (port_fn, ref_fn):
-        gate = threading.Barrier(n)
+        gate = threading.Barrier(n, timeout=60)
 
         def op(i, fn=fn, gate=gate):
             gate.wait()

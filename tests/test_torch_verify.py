@@ -72,8 +72,8 @@ def test_batcher_folds_concurrent_scrubs():
     def run(i, rows):
         out[i] = bat.verify(v, rows)
 
-    ts = [threading.Thread(target=run, args=(0, a)),
-          threading.Thread(target=run, args=(1, b))]
+    ts = [threading.Thread(target=run, args=(0, a), daemon=True),
+          threading.Thread(target=run, args=(1, b), daemon=True)]
     for t in ts:
         t.start()
     for t in ts:
