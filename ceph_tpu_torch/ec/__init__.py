@@ -1,9 +1,10 @@
 """Erasure-code engine of the port: plugin interface, registry, the
 builtin plugins ``tpu``, ``jerasure`` (matrix and bit-matrix techniques),
-``isa`` and ``xor``, and the write path around them: the cross-op
-ECBatcher (encode, degraded decode, folded verify), the DeviceArena and
-the CrcVerifier (the counterpart of ``ceph_tpu.ec``; the clay, lrc and
-shec plugins come with later slices).  The registry imports
+``isa``, ``xor``, and the wide and local codes ``lrc``, ``shec`` and
+``clay``, and the write path around them: the cross-op ECBatcher
+(encode, degraded decode, CLAY's sub-chunk and repair folds, folded
+verify), the DeviceArena and the CrcVerifier (the counterpart of
+``ceph_tpu.ec``).  The registry imports
 ``ceph_tpu_torch.ec.plugin_<name>`` at first use."""
 
 from .arena import DeviceArena

@@ -62,10 +62,18 @@ the flush's one copy back.  Only the numpy backend sweeps on the host.
 Deep scrub: the ``verify`` op kind folds concurrent digest requests of
 one length bucket into one CRC32C pass (ec/verify.py).
 
+Sub-chunk codecs (CLAY, fold kind ``subchunk``): ops of one exact chunk
+length fold on the host at plane granularity, and the codec's folded
+entry points (``encode_chunks_folded``, ``decode_chunks_folded``) run
+their coupling once and their plane products as folded launches on the
+codec's device; concurrent repairs of one lost chunk from one helper set
+fold into one ``repair_chunk_folded`` pass (``repair``).  A sub-chunk
+flush's csums are a host CRC32C sweep over its host parity, as in the
+JAX package.
+
 Not in the port yet: the reference's mesh fan-out (``shard``; a codec
-with a fan-out above 1 raises at construction) and the sub-chunk and
-repair folds of the wide codes (CLAY), whose codecs are not ported; a
-codec without fold kinds passes through.
+with a fan-out above 1 raises at construction).  A codec without fold
+kinds passes through.
 
 Tracing: an op submitted with ``trace=(tracer, parent_ctx)`` gets an
 ``ec-batch-wait`` span covering queued -> flushed, and each flush emits
@@ -143,7 +151,7 @@ def _pow2(n: int) -> int:
 
 
 class _PendingOp:
-    """One submitted encode/decode/verify riding a folded launch."""
+    """One submitted encode/decode/repair/verify riding a folded launch."""
 
     __slots__ = ("codec", "streams", "chunks", "want", "length",
                  "with_csums", "callback", "deadline", "submitted",
@@ -185,9 +193,9 @@ class _PendingOp:
 class ECBatcher:
     """Coalesces concurrent same-signature EC stripe work per launch.
 
-    Thread-safe; blocking ``encode``/``decode``/``verify`` are the only
-    entry points, so every pending op has a live waiter and none can
-    leak.
+    Thread-safe; blocking ``encode``/``decode``/``repair``/``verify`` are
+    the only entry points, so every pending op has a live waiter and none
+    can leak.
     """
 
     #: adaptive-window controller constants: EWMA weight of the newest
@@ -272,18 +280,30 @@ class ECBatcher:
                 # poisoning coalesced neighbors
                 and L > 0):
             kind = None
-        if self.window_us <= 0 or kind != "plain":
+        if kind == "subchunk" and (L % codec.get_sub_chunk_count()
+                                   or _is_device(data_chunks)):
+            # sub-chunk codecs fold host bytes at plane granularity; a
+            # misaligned length takes the codec's own error per op
+            kind = None
+        if self.window_us <= 0 or kind is None:
             return self._passthrough_encode(codec, data_chunks,
                                             with_csums, callback)
         # codec identity rides the signature: two codecs sharing a
-        # matrix's bytes+shape must not coalesce into one fold
+        # matrix's bytes+shape must not coalesce into one fold.  A
+        # sub-chunk fold is exact-L: its segments cannot pad inside an
+        # op (the plane reshape would cross real-byte boundaries)
         sig = ("enc", codec.fold_sig(), codec.matrix.tobytes(),
-               codec.k, codec.m, bool(with_csums), bucket_len(L))
+               codec.k, codec.m, bool(with_csums),
+               L if kind == "subchunk" else bucket_len(L))
         op = _PendingOp(codec, streams=data_chunks, length=L,
                         with_csums=with_csums, callback=callback)
         self._trace_submit(op, trace, sig)
-        self._stage_encode_op(op, sig[-1])
-        self._submit(sig, op, _nbytes(data_chunks), self._flush_encode)
+        if kind == "plain":
+            self._stage_encode_op(op, sig[-1])
+            flush = self._flush_encode
+        else:
+            flush = self._flush_encode_subchunk
+        self._submit(sig, op, _nbytes(data_chunks), flush)
         if op.error is not None:
             raise op.error
         return op.parity, op.csums
@@ -317,22 +337,30 @@ class ECBatcher:
             kind = None
         avail = tuple(sorted(arrays))
         if kind == "plain" and codec.fold_rows(need, avail) is None:
-            # this erasure cannot fold (not enough survivors): the per-op
-            # path surfaces the codec's own error without poisoning
-            # coalesced neighbors
+            # this erasure cannot fold (not enough survivors, or no
+            # invertible subset): the per-op path surfaces the codec's
+            # own error without poisoning coalesced neighbors
             kind = None
-        if kind != "plain":
+        if kind == "subchunk" and \
+                next(iter(lengths)) % codec.get_sub_chunk_count():
+            kind = None
+        if kind is None:
             return self._passthrough_decode(codec, want, chunks, callback)
         L = lengths.pop()
         sig = ("dec", codec.fold_sig(), codec.matrix.tobytes(),
-               codec.k, codec.m, avail, tuple(need), bucket_len(L))
+               codec.k, codec.m, avail, tuple(need),
+               L if kind == "subchunk" else bucket_len(L))
         # the callback is fired below by THIS thread, after present
         # shards merge back in — not by the flusher
         op = _PendingOp(codec, chunks=arrays, want=need, length=L)
         self._trace_submit(op, trace, sig)
-        self._stage_decode_op(op, sig)
+        if kind == "plain":
+            self._stage_decode_op(op, sig)
+            flush = self._flush_decode
+        else:
+            flush = self._flush_decode_subchunk
         nbytes = sum(_nbytes(c) for c in arrays.values())
-        self._submit(sig, op, nbytes, self._flush_decode)
+        self._submit(sig, op, nbytes, flush)
         if op.error is not None:
             raise op.error
         out = dict(op.decoded)
@@ -345,6 +373,32 @@ class ECBatcher:
             if op.error is not None:
                 raise op.error
         return out
+
+    def repair(self, codec, lost: int, helper_subchunks: ChunkMap,
+               L: int, *, trace: tuple | None = None) -> np.ndarray:
+        """Batched sub-chunk repair (CLAY MSR): concurrent repairs of the
+        SAME lost chunk from the same helper set — the recovery-storm
+        shape, one downed OSD's shard rebuilt across many objects — fold
+        into one repair pass whose parity-check products run once over
+        the whole launch (repair_chunk_folded).  Returns the repaired
+        chunk exactly as ``codec.repair_chunk`` would."""
+        helpers = {h: _host(c) for h, c in helper_subchunks.items()}
+        nbytes = sum(c.nbytes for c in helpers.values())
+        foldable = (self.window_us > 0
+                    and hasattr(codec, "repair_chunk_folded")
+                    and L > 0
+                    and L % codec.get_sub_chunk_count() == 0)
+        if not foldable:
+            out = codec.repair_chunk(lost, helpers, L)
+            self._account(1, nbytes, FLUSH_IDLE)
+            return out
+        sig = ("rep", codec.fold_sig(), lost, tuple(sorted(helpers)), L)
+        op = _PendingOp(codec, chunks=helpers, want=[lost], length=L)
+        self._trace_submit(op, trace, sig)
+        self._submit(sig, op, nbytes, self._flush_repair)
+        if op.error is not None:
+            raise op.error
+        return op.decoded
 
     def verify(self, verifier, rows: np.ndarray, *,
                trace: tuple | None = None) -> np.ndarray:
@@ -459,6 +513,8 @@ class ECBatcher:
     def _sig_tag(sig: tuple) -> str:
         """Human-readable batch-signature tag (the raw sig embeds the
         whole coding matrix): kind/codec/k.m/length-bucket."""
+        if sig[0] == "rep":
+            return f"rep/{sig[1][0]}/lost{sig[2]}/L{sig[-1]}"
         if sig[0] == "ver":
             return f"ver/{sig[1][0]}/L{sig[-1]}"
         return f"{sig[0]}/{sig[1][0]}/k{sig[3]}m{sig[4]}/L{sig[-1]}"
@@ -951,6 +1007,109 @@ class ECBatcher:
                 fspan, bucket=bucket,
                 src_cols=sum(o.length for o in ops),
                 padded_cols=padded_cols)
+            self._complete(ops, src_bytes, reason)
+
+    # CLAY (any codec of fold kind "subchunk") folds at plane
+    # granularity: the ops' exact-L segments fold on the HOST (the plane
+    # transpose is O(bytes) numpy), and the codec's folded entry point
+    # runs its coupling once on the host and its plane products as
+    # folded launches on its device, on this thread's stream.
+
+    def _flush_encode_subchunk(self, sig: tuple, ops: list[_PendingOp],
+                               reason: str) -> None:
+        L = sig[-1]
+        codec = ops[0].codec
+        src_bytes = sum(_nbytes(o.streams) for o in ops)
+        padded_cols = 0
+        fspan = self._trace_flush(sig, ops, reason)
+        try:
+            n2 = _pow2(len(ops))
+            padded_cols = n2 * L
+            with self._launch_ctx(codec, ops):
+                folded = self._fold_host_rows(
+                    [o.streams for o in ops], [L] * len(ops), L,
+                    codec.k, n2)
+                # zero stripe slots encode to zero parity (a linear
+                # code: zero data, zero uncoupled planes, zero parity),
+                # so the pow2 padding slices away clean
+                parity = codec.encode_chunks_folded(folded, n2, L)
+            for i, o in enumerate(ops):
+                o.parity = parity[:, i * L: (i + 1) * L].copy()
+                if o.with_csums:
+                    o.csums = _host_csums(
+                        np.concatenate([o.streams, o.parity], axis=0))
+            for o in ops:
+                if o.callback is not None:
+                    self._fire(o, o.callback, o.parity, o.csums)
+        except BaseException as e:
+            for o in ops:
+                o.error = e
+        finally:
+            self._trace_flush_done(
+                fspan, bucket=L, src_cols=sum(o.length for o in ops),
+                padded_cols=padded_cols)
+            self._complete(ops, src_bytes, reason)
+
+    def _flush_decode_subchunk(self, sig: tuple, ops: list[_PendingOp],
+                               reason: str) -> None:
+        L = sig[-1]
+        codec = ops[0].codec
+        avail = [s for s in sig[5] if s < codec.chunk_count]
+        want = list(sig[6])
+        src_bytes = sum(sum(_nbytes(c) for c in o.chunks.values())
+                        for o in ops)
+        padded_cols = 0
+        fspan = self._trace_flush(sig, ops, reason)
+        try:
+            n2 = _pow2(len(ops))
+            padded_cols = n2 * L
+            with self._launch_ctx(codec, ops):
+                folded = np.empty((len(avail), n2 * L), dtype=np.uint8)
+                for i, o in enumerate(ops):
+                    c0 = i * L
+                    for j, s in enumerate(avail):
+                        folded[j, c0: c0 + L] = _host(o.chunks[s])
+                if len(ops) < n2:
+                    folded[:, len(ops) * L:] = 0
+                out = codec.decode_chunks_folded(want, avail, folded,
+                                                 n2, L)
+            for i, o in enumerate(ops):
+                o.decoded = {
+                    s: out[j, i * L: (i + 1) * L].copy()
+                    for j, s in enumerate(want)}
+        except BaseException as e:
+            for o in ops:
+                o.error = e
+        finally:
+            self._trace_flush_done(
+                fspan, bucket=L, src_cols=sum(o.length for o in ops),
+                padded_cols=padded_cols)
+            self._complete(ops, src_bytes, reason)
+
+    def _flush_repair(self, sig: tuple, ops: list[_PendingOp],
+                      reason: str) -> None:
+        """Folded MSR repair flush: same lost chunk, same helper set,
+        same L — the whole group rides ONE repair_chunk_folded pass (no
+        stripe-count padding: a zero segment would buy nothing)."""
+        L = sig[-1]
+        codec = ops[0].codec
+        lost = sig[2]
+        src_bytes = sum(sum(c.nbytes for c in o.chunks.values())
+                        for o in ops)
+        fspan = self._trace_flush(sig, ops, reason)
+        try:
+            with self._launch_ctx(codec, ops):
+                outs = codec.repair_chunk_folded(
+                    lost, [o.chunks for o in ops], L)
+            for o, chunk in zip(ops, outs):
+                o.decoded = chunk
+        except BaseException as e:
+            for o in ops:
+                o.error = e
+        finally:
+            self._trace_flush_done(
+                fspan, bucket=L, src_cols=len(ops) * L,
+                padded_cols=len(ops) * L)
             self._complete(ops, src_bytes, reason)
 
     def _flush_verify(self, sig: tuple, ops: list[_PendingOp],

@@ -13,7 +13,9 @@ independent granules of w*SIMD_ALIGN bytes, each split into w packets, so
 any granule-aligned sub-range encodes identically to the same bytes
 inside a larger call.
 
-Backends: ``numpy`` is the host path (the oracle); ``torch`` runs the
+Backends: ``numpy`` is the host path (the oracle), and ``native`` (what
+``auto`` resolves to when the native library loads) takes the same host
+XOR path, as in the JAX package; ``torch`` runs the
 chunks through ops/ec_kernels.ScheduledXor in packet mode on the
 profile's ``device`` (default ``cuda``), which on the card launches the
 CUDA kernel gf_sched_xor.  The chunks go to the device in one copy, the

@@ -6,7 +6,9 @@ registered under the same name, ``isa``.  It mirrors the reference's
 ErasureCodeIsa.cc: matrix choice, decode-table caching per erasure
 signature (MatrixErasureCode._get_decode_matrix) and the single-erasure
 pure-XOR fast path (the kernels' coefficient-1 XOR).  The backend
-defaults to ``torch`` on the profile's ``device`` (default ``cuda``).
+defaults to ``torch`` on the profile's ``device`` (default ``cuda``);
+``native`` and ``numpy`` run on the host, and an explicit ``auto``
+resolves to ``native`` when the native library loads, else ``numpy``.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ Techniques:
 The backend defaults to ``torch`` on the profile's ``device`` (default
 ``cuda``): the matrix techniques run the GF(2^8) region kernels, the
 bit-matrix techniques the scheduled-XOR kernel.  ``backend=numpy`` is the
-host path; the JAX package's ``native`` backend is not ported.
+host oracle; ``backend=native`` runs the matrix techniques on the native
+library's region product (ops/native.py) and the bit-matrix techniques
+on the host XOR path; an explicit ``backend=auto`` resolves to ``native``
+when the library loads, else ``numpy``, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ encode loop :165-195, decode loop :260-326, output "seconds \\t KiB"
 
 The port adds ``--device`` (default ``cuda``): the profile's ``device``
 key, unless a ``--parameter device=...`` sets it.  The default plugin is
-``tpu``; ``jerasure``, ``isa`` and ``xor`` are there too.
+``tpu``; ``jerasure``, ``isa``, ``xor``, ``lrc``, ``shec`` and ``clay``
+are there too.
 
 Examples:
     python -m ceph_tpu_torch.tools.ec_benchmark \\

@@ -8,7 +8,7 @@ k, m[, extra]) configuration, and verify later versions reproduce them
 BYTE-EXACTLY — the guard against parity drift across releases and across
 backends (the JAX package and this port must both match the archive).
 
-The grid is the JAX package's, limited to the plugins the port has;
+The grid is the JAX package's, all 15 configurations in its order;
 ``--create`` writes their archives into the ``--base`` the caller names
 (the same payload, so they equal the JAX package's archives byte for
 byte), ``--check`` verifies them.  ``--device`` (default ``cuda``) is the
@@ -30,7 +30,7 @@ from .. import ec
 
 STRIPE_WIDTH = 4096  # matches the reference tool's default stripe-width
 
-#: the JAX package's grid, limited to the plugins the port has
+#: the JAX package's grid, in its order
 DEFAULT_GRID = [
     ("jerasure", {"technique": "reed_sol_van", "k": "2", "m": "1"}),
     ("jerasure", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
@@ -42,6 +42,10 @@ DEFAULT_GRID = [
     ("jerasure", {"technique": "liberation", "k": "5", "m": "2"}),
     ("jerasure", {"technique": "blaum_roth", "k": "4", "m": "2"}),
     ("jerasure", {"technique": "liber8tion", "k": "6", "m": "2"}),
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("shec", {"k": "8", "m": "4", "c": "3"}),
+    ("clay", {"k": "8", "m": "4", "d": "11"}),
+    ("clay", {"k": "5", "m": "3", "d": "7"}),  # shortened (nu=1)
     ("tpu", {"technique": "reed_sol_van", "k": "8", "m": "3"}),
 ]
 
@@ -124,8 +128,9 @@ def check(base: str, backend: str | None, device: str = "cuda",
             if chunk.tobytes() != want:
                 print(f"PARITY DRIFT {d} chunk {cid}", file=sys.stderr)
                 failures += 1
-        # decode check: the port's codes are MDS, so drop m chunks
-        erased = list(range(codec.m))
+        # decode check: MDS codes drop m chunks; locality codes (not MDS
+        # against arbitrary patterns) drop one data chunk
+        erased = [0] if plugin in ("lrc", "shec") else list(range(codec.m))
         avail = {i: c for i, c in chunks.items() if i not in erased}
         out = codec.decode(erased, avail)
         for i in erased:
@@ -145,7 +150,7 @@ def main(argv=None) -> int:
     p.add_argument("--create", action="store_true")
     p.add_argument("--check", action="store_true")
     p.add_argument("--backend", default=None,
-                   help="force a math backend (numpy/torch) — the "
+                   help="force a math backend (numpy/native/torch) — the "
                        "cross-backend parity check")
     p.add_argument("--device", default="cuda",
                    help="device the plugins run on (default cuda)")

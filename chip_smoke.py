@@ -27,7 +27,8 @@ in order, one line each:
              encode_batch / decode_batch of 64 x 1 MiB stripes and
              encode / decode through the interface, byte-exact.
 6. cli     — tools.ec_benchmark encode and decode at 80 MiB x 10.
-7. corpus  — tools.ec_non_regression --check on corpus/ (11 directories).
+7. corpus  — tools.ec_non_regression --check on the 11 directories of
+             corpus/ of the matrix and bit-matrix codes.
 8. bits    — the jerasure bit-matrix techniques (liberation k=5,
              blaum_roth k=4, liber8tion k=6, m=2) on the card: a 4 MiB
              object encoded and decoded for every 1- and 2-erasure
@@ -46,19 +47,39 @@ in order, one line each:
              writes and the reads, two flushes of 8 checksummed encodes
              of four lengths in one bucket (two of them not whole words),
              which the fused op cannot take.
+12. shec   — SHEC k=8, m=4, c=3 at 1 MiB stripes: an 8 MiB object decoded
+             through the interface for every set of 1, 2 and 3 erased
+             chunks (decoded or refused as the numpy codec does), then 8
+             threads x 8 checksummed encodes through one ECBatcher at the
+             OSD's defaults (the fused encode+CRC op on 12 rows), then
+             degraded reads of every stripe with one data chunk missing
+             (a fold of SHEC's narrow window) and with 3 chunks missing.
+13. clay   — CLAY k=8, m=4, d=11 (64 planes) at 1 MiB stripes through the
+             same kind of ECBatcher: 64 checksummed encodes (the sub-chunk
+             fold), repairs of each of the 12 chunks of 16 objects from 8
+             threads (the repair fold, 16 of 64 planes from each of 11
+             helpers), and a 4-erasure decode of the 16 objects (the
+             sub-chunk decode fold), against the numpy codec.
+14. widecorpus — tools.ec_non_regression --check on the four wide-code
+             directories of corpus/ (lrc, shec, two clay).
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
-bit-matrix path and phase 11 the write path: the launch counts are set
-to 0 before each path and read after it.  The region kernels must have
-launched on the first, the scheduled-XOR kernel on the second, G1 and a
-region kernel on the third, the plain versions on none, and no kernel
-pick may have skipped a candidate; where the first path raced a matrix
-of phase 3 at its length, it must have pinned the kernel that phase 3
-timed faster (unless the two are within 5 %).  On the write path every
+bit-matrix path, phase 11 the write path and phases 12-14 the wide path:
+the launch counts are set to 0 before each path and read after it.
+The region kernels must have launched on the first, the scheduled-XOR
+kernel on the second, G1 and a region kernel on the third, the plain
+versions on none, and no kernel pick may have skipped a candidate;
+where the first path raced a matrix of phase 3 at its length, it must
+have pinned the kernel that phase 3 timed faster (unless the two are
+within 5 %).  On the write path every
 encode flush of one length must have taken the fused encode+CRC op,
 every flush of several lengths one G1 launch per length and no fused
 op, no CRC may have run on the host, and every encode and decode flush
-must have left the card in exactly one copy.  Then one
+must have left the card in exactly one copy.  On the wide path a region
+kernel must have launched and the plain versions never, every checksummed
+SHEC encode flush must have taken the fused op, a SHEC fold of one lost
+data chunk must have read fewer than k rows, and at least one sub-chunk
+flush and one repair flush must have carried more than one op.  Then one
 JSON line lists every kernel, and the last line is the ``{"ok": true,
 "device": ...}`` object.  Any failure exits nonzero, and so does a
 process with no CUDA card.
@@ -154,6 +175,19 @@ WRITE = dict(writers=8, per_writer=16, k=8, m=3, chunk=128 << 10,
                           window_min_us=50.0, window_max_us=4000.0))
 #: rows of the scrub fold
 SCRUB_ROWS = 64
+
+#: the wide path: BASELINE.json's two wide configurations, SHEC k=8 m=4
+#: c=3 and CLAY k=8 m=4 d=11, at 1 MiB stripes (128 KiB chunks); threads,
+#: stripes a thread, the SHEC object decoded through the interface, the
+#: objects CLAY repairs and decodes, the chunks its decode erases, and the
+#: ECBatcher at the OSD's defaults (WRITE's)
+WIDE = dict(threads=8, per_thread=8, chunk=128 << 10,
+            shec=dict(k=8, m=4, c=3), shec_object=8 << 20,
+            shec_prefix=4 << 10, clay=dict(k=8, m=4, d=11),
+            clay_objects=16, clay_erased=(0, 3, 8, 11),
+            batcher=WRITE["batcher"])
+#: the plugins of the wide corpus directories
+WIDE_PLUGINS = ("lrc", "shec", "clay")
 #: size flushes of the mixed-length writes (one encode a writer each)
 MIXED_ROUNDS = 2
 
@@ -1128,11 +1162,16 @@ def phase_cli(dev: torch.device, size: int = 80 << 20,
                "{0,5,10} and {3} byte-exact")
 
 
+def corpus_grid(wide: bool) -> list:
+    """The corpus grid's wide-code configurations, or all the others."""
+    return [(plugin, prof) for plugin, prof in ec_non_regression.DEFAULT_GRID
+            if (plugin in WIDE_PLUGINS) == wide]
+
+
 def phase_corpus(dev: torch.device) -> None:
     say("corpus", run_quiet(
-        "ec_non_regression --check", ec_non_regression.main,
-        ["--check", "--base", os.path.join(REPO, "corpus"),
-         "--device", str(dev)]))
+        "ec_non_regression --check", ec_non_regression.check,
+        os.path.join(REPO, "corpus"), None, str(dev), corpus_grid(False)))
 
 
 def phase_bits(dev: torch.device, rng: np.random.Generator,
@@ -1282,6 +1321,366 @@ def check_race_picks(times: dict[str, dict[str, float]],
                                  f"{100 * gap:.1f} % faster")
 
 
+#: the batcher's flush methods and the fold kind each records as
+FLUSH_KINDS = {"_flush_encode": "encode", "_flush_decode": "decode",
+               "_flush_encode_subchunk": "subchunk encode",
+               "_flush_decode_subchunk": "subchunk decode",
+               "_flush_repair": "repair"}
+
+
+@contextlib.contextmanager
+def recorded_flushes(batcher, flushes: list):
+    """Within the block, every flush of ``batcher`` appends (fold kind,
+    signature, ops it carried)."""
+
+    def wrap(kind, fn):
+        def flush(sig, ops, reason):
+            flushes.append((kind, sig, len(ops)))
+            return fn(sig, ops, reason)
+        return flush
+
+    for name, kind in FLUSH_KINDS.items():
+        setattr(batcher, name, wrap(kind, getattr(batcher, name)))
+    try:
+        yield
+    finally:
+        for name in FLUSH_KINDS:
+            delattr(batcher, name)
+
+
+def fold_summary(flushes: list) -> dict[str, list]:
+    """fold kind -> [flushes, ops, most ops in one flush]."""
+    out: dict[str, list] = {}
+    for kind, _sig, n in flushes:
+        agg = out.setdefault(kind, [0, 0, 0])
+        agg[0] += 1
+        agg[1] += n
+        agg[2] = max(agg[2], n)
+    return out
+
+
+def _each_thread(n: int, per: int, fn) -> float:
+    """_threads over ``n`` threads, thread t calling fn(i) for its ``per``
+    indices t*per .. t*per + per - 1."""
+    def run(t):
+        for i in range(t * per, (t + 1) * per):
+            fn(i)
+    return _threads(n, run)
+
+
+def phase_shec(dev: torch.device, rng: np.random.Generator, *, threads: int,
+               per_thread: int, chunk: int, shec: dict, shec_object: int,
+               shec_prefix: int, batcher: dict) -> dict:
+    """SHEC through its entry points on the card: an object of
+    ``shec_object`` bytes decoded for every set of 1, 2 and 3 erased
+    chunks through the interface (byte-exact where the numpy codec
+    decodes the first ``shec_prefix`` bytes of each chunk, refused where
+    it refuses); then ``threads`` x ``per_thread`` checksummed encodes
+    of (k, chunk) stripes through one ECBatcher built with ``batcher``;
+    then degraded reads of every stripe with one data chunk missing and
+    with a 3-erasure set missing.  Returns what check_wide_path reads."""
+    prof = {key: str(v) for key, v in shec.items()}
+    codec = ec.factory("shec", dict(prof, device=str(dev)))
+    host = ec.factory("shec", dict(prof, backend="numpy"))
+    k, n_chunks = codec.k, codec.chunk_count
+    t0 = time.perf_counter()
+    obj = rng.integers(0, 256, shec_object, dtype=np.uint8)
+    chunks = codec.encode(obj)
+    want = host.encode(obj)
+    for i in want:
+        if not np.array_equal(chunks[i], want[i]):
+            raise AssertionError(f"shec encode: chunk {i} differs from the "
+                                 "numpy codec")
+    decoded = {1: [], 2: [], 3: []}
+    total = {r: 0 for r in decoded}
+    for r in decoded:
+        for erased in itertools.combinations(range(n_chunks), r):
+            total[r] += 1
+            avail = {i: c for i, c in chunks.items() if i not in erased}
+            try:
+                ref = host.decode(list(erased), {
+                    i: c[:shec_prefix] for i, c in avail.items()})
+            except ec.ErasureCodeError:
+                try:
+                    codec.decode(list(erased), avail)
+                except ec.ErasureCodeError:
+                    continue
+                raise AssertionError(f"shec decoded {erased} on the card, "
+                                     "which the numpy codec refuses")
+            got = codec.decode(list(erased), avail)
+            for i in erased:
+                if not (np.array_equal(got[i], chunks[i]) and
+                        np.array_equal(ref[i], chunks[i][:shec_prefix])):
+                    raise AssertionError(f"shec decode {erased}: chunk {i}")
+            decoded[r].append(erased)
+    decode_s = time.perf_counter() - t0
+    say("shec", f"{shec_object >> 10} KiB object: every set of 1, 2 and 3 "
+                f"erased chunks decoded byte-exact or refused as the numpy "
+                f"codec does: {len(decoded[1])}/{total[1]}, "
+                f"{len(decoded[2])}/{total[2]}, {len(decoded[3])}/"
+                f"{total[3]} decode ({decode_s:.3f} s)")
+
+    bat = ec_batcher.ECBatcher(**batcher)
+    flushes = []
+    n = threads * per_thread
+    data = rng.integers(0, 256, (n, k, chunk), dtype=np.uint8)
+    parity, csums = [None] * n, [None] * n
+
+    def write(i):
+        parity[i], csums[i] = bat.encode(codec, data[i], with_csums=True)
+
+    c0 = csum_launches()
+    with recorded_flushes(bat, flushes):
+        write_s = _each_thread(threads, per_thread, write)
+    fused = csum_launches() - c0
+    # the native library's product, held against the numpy oracle by
+    # tests/test_torch_native.py: 64 MiB through numpy would take seconds
+    folded = data.transpose(1, 0, 2).reshape(k, n * chunk)
+    oracle = native.encode_region(codec.matrix, folded).reshape(
+        codec.m, n, chunk)
+    for i in range(n):
+        if not np.array_equal(parity[i], oracle[:, i]):
+            raise AssertionError(f"shec write {i}: parity differs from the "
+                                 "oracle")
+        stack = np.concatenate([data[i], parity[i]])
+        if not np.array_equal(csums[i], np.array(
+                native.crc32c_blocks(stack, chunk), dtype=np.uint32)):
+            raise AssertionError(f"shec write {i}: csums differ from native "
+                                 "crc32c")
+    writes = fold_summary(flushes).get("encode", [0, 0, 0])
+    say("shec", f"{n} checksummed encodes of {k} x {chunk >> 10} KiB from "
+                f"{threads} threads: parity equal to the oracle, csums to "
+                f"native crc32c; {writes[0]} flushes of "
+                f"{writes[1] / max(1, writes[0]):.2f} ops, {fused} through "
+                f"the fused op; {n * k * chunk / write_s / 1e9:.3f} GB/s of "
+                f"data ({write_s:.3f} s)")
+
+    lost = (k // 2,)
+    multi = next(e for e in decoded[3] if sum(i < k for i in e) >= 2)
+    reads = {}
+    for erased in (lost, multi):
+        out = [None] * n
+        mark = len(flushes)
+
+        def read(i, erased=erased, out=out):
+            full = np.concatenate([data[i], parity[i]])
+            out[i] = bat.decode(codec, list(erased), {
+                s: full[s] for s in range(n_chunks) if s not in erased})
+
+        with recorded_flushes(bat, flushes):
+            read_s = _each_thread(threads, per_thread, read)
+        for i in range(n):
+            for s in erased:
+                want_s = data[i][s] if s < k else parity[i][s - k]
+                if not np.array_equal(out[i][s], want_s):
+                    raise AssertionError(f"shec read {i} {erased}: chunk {s}")
+        rows = [len(bat._fold_rows_for(codec, sig))
+                for kind, sig, _n in flushes[mark:] if kind == "decode"]
+        mine = fold_summary(flushes[mark:]).get("decode", [0, 0, 0])
+        reads[erased] = {"rows": rows, "s": read_s}
+        say("shec", f"{n} degraded reads, chunks {list(erased)} missing: "
+                    f"byte-exact; {mine[0]} flushes of "
+                    f"{mine[1] / max(1, mine[0]):.2f} ops reading "
+                    f"{sorted(set(rows))} rows (k={k}); "
+                    f"{n * k * chunk / read_s / 1e9:.3f} GB/s of data "
+                    f"({read_s:.3f} s)")
+    return {"decode_s": decode_s, "write_s": write_s,
+            "read_s": sum(r["s"] for r in reads.values()),
+            "bytes": n * k * chunk, "fused": fused, "k": k,
+            "narrow_rows": reads[lost]["rows"],
+            "flushes": fold_summary(flushes)}
+
+
+def phase_clay(dev: torch.device, rng: np.random.Generator, *, threads: int,
+               per_thread: int, chunk: int, clay: dict, clay_objects: int,
+               clay_erased: tuple, batcher: dict) -> dict:
+    """CLAY through one ECBatcher built with ``batcher`` on the card:
+    ``threads`` x ``per_thread`` checksummed encodes of (k, chunk)
+    stripes (the sub-chunk fold) against the numpy codec and native
+    crc32c; repairs of every chunk of the first ``clay_objects`` stripes
+    from ``threads`` threads (the repair fold) against the numpy codec's
+    repair_chunk; and their decode with ``clay_erased`` missing (the
+    sub-chunk decode fold).  Returns what check_wide_path reads."""
+    prof = {key: str(v) for key, v in clay.items()}
+    codec = ec.factory("clay", dict(prof, device=str(dev)))
+    host = ec.factory("clay", dict(prof, backend="numpy"))
+    k, n_chunks, alpha = codec.k, codec.chunk_count, codec.alpha
+    bat = ec_batcher.ECBatcher(**batcher)
+    flushes = []
+    n = threads * per_thread
+    data = rng.integers(0, 256, (n, k, chunk), dtype=np.uint8)
+    parity, csums = [None] * n, [None] * n
+
+    def write(i):
+        parity[i], csums[i] = bat.encode(codec, data[i], with_csums=True)
+
+    with recorded_flushes(bat, flushes):
+        write_s = _each_thread(threads, per_thread, write)
+    for i in range(n):
+        if not np.array_equal(parity[i], host.encode_chunks(data[i])):
+            raise AssertionError(f"clay write {i}: parity differs from the "
+                                 "numpy codec")
+        stack = np.concatenate([data[i], parity[i]])
+        if not np.array_equal(csums[i], np.array(
+                native.crc32c_blocks(stack, chunk), dtype=np.uint32)):
+            raise AssertionError(f"clay write {i}: csums differ from native "
+                                 "crc32c")
+    writes = fold_summary(flushes).get("subchunk encode", [0, 0, 0])
+    say("clay", f"k={k} m={codec.m} d={codec.d}, {alpha} planes: {n} "
+                f"checksummed encodes of {k} x {chunk >> 10} KiB from "
+                f"{threads} threads equal to the numpy codec, csums to "
+                f"native crc32c; {writes[0]} sub-chunk flushes of "
+                f"{writes[1] / max(1, writes[0]):.2f} ops; "
+                f"{n * k * chunk / write_s / 1e9:.3f} GB/s of data "
+                f"({write_s:.3f} s)")
+
+    fulls = [np.concatenate([data[i], parity[i]])
+             for i in range(clay_objects)]
+    per = clay_objects // threads
+    repaired = {}
+
+    def helpers(i, lost):
+        planes = codec.repair_planes(lost)
+        return {h: fulls[i][h].reshape(alpha, -1)[planes]
+                for h in range(n_chunks) if h != lost}
+
+    def repair(t):
+        for lost in range(n_chunks):
+            for i in range(t * per, (t + 1) * per):
+                repaired[i, lost] = bat.repair(codec, lost, helpers(i, lost),
+                                               chunk)
+
+    mark = len(flushes)
+    with recorded_flushes(bat, flushes):
+        repair_s = _threads(threads, repair)
+    for (i, lost), got in repaired.items():
+        if not (np.array_equal(got, fulls[i][lost]) and np.array_equal(
+                got, host.repair_chunk(lost, helpers(i, lost), chunk))):
+            raise AssertionError(f"clay repair of chunk {lost} of object "
+                                 f"{i} differs")
+    reps = fold_summary(flushes[mark:]).get("repair", [0, 0, 0])
+    sent = sum(h.nbytes for h in helpers(0, 0).values())
+    say("clay", f"{len(repaired)} repairs (every chunk of {clay_objects} "
+                f"objects) from {threads} threads equal to the stored chunk "
+                f"and the numpy codec's repair_chunk; {reps[0]} repair "
+                f"flushes of {reps[1] / max(1, reps[0]):.2f} ops; helpers "
+                f"send {sent >> 10} KiB a repair against {k * chunk >> 10} "
+                f"KiB for a read of k chunks; {repair_s:.3f} s")
+
+    out = [None] * clay_objects
+
+    def read(i):
+        out[i] = bat.decode(codec, list(clay_erased), {
+            s: fulls[i][s] for s in range(n_chunks) if s not in clay_erased})
+
+    mark = len(flushes)
+    with recorded_flushes(bat, flushes):
+        read_s = _each_thread(threads, per, read)
+    ref = host.decode(list(clay_erased), {
+        s: fulls[0][s] for s in range(n_chunks) if s not in clay_erased})
+    for i in range(clay_objects):
+        for s in clay_erased:
+            if not np.array_equal(out[i][s], fulls[i][s]) or (
+                    i == 0 and not np.array_equal(ref[s], fulls[i][s])):
+                raise AssertionError(f"clay decode {clay_erased} of object "
+                                     f"{i}: chunk {s}")
+    dec = fold_summary(flushes[mark:]).get("subchunk decode", [0, 0, 0])
+    say("clay", f"{clay_objects} degraded reads, chunks {list(clay_erased)} "
+                f"missing: byte-exact; {dec[0]} sub-chunk flushes of "
+                f"{dec[1] / max(1, dec[0]):.2f} ops; "
+                f"{clay_objects * k * chunk / read_s / 1e9:.3f} GB/s of data "
+                f"({read_s:.3f} s)")
+    return {"write_s": write_s, "repair_s": repair_s, "read_s": read_s,
+            "bytes": n * k * chunk, "read_bytes": clay_objects * k * chunk,
+            "flushes": fold_summary(flushes)}
+
+
+def phase_wide_corpus(dev: torch.device) -> None:
+    say("widecorpus", run_quiet(
+        "wide-code corpus check", ec_non_regression.check,
+        os.path.join(REPO, "corpus"), None, str(dev), corpus_grid(True)))
+
+
+def wide_path(dev: torch.device, rng: np.random.Generator, *, threads: int,
+              per_thread: int, chunk: int, shec: dict, shec_object: int,
+              shec_prefix: int, clay: dict, clay_objects: int,
+              clay_erased: tuple, batcher: dict
+              ) -> tuple[dict[str, int], dict]:
+    """Phases 12-14 with the launch counts set to 0 before and read
+    after; returns the counts and the phases' results, and prints the
+    [wide] line."""
+    ec_kernels.reset_launches()
+    t0 = time.perf_counter()
+    shec_res = phase_shec(dev, rng, threads=threads, per_thread=per_thread,
+                          chunk=chunk, shec=shec, shec_object=shec_object,
+                          shec_prefix=shec_prefix, batcher=batcher)
+    t1 = time.perf_counter()
+    clay_res = phase_clay(dev, rng, threads=threads, per_thread=per_thread,
+                          chunk=chunk, clay=clay, clay_objects=clay_objects,
+                          clay_erased=clay_erased, batcher=batcher)
+    t2 = time.perf_counter()
+    phase_wide_corpus(dev)
+    t3 = time.perf_counter()
+    counts = ec_kernels.launch_counts()
+    folds = {f"shec {key}": v for key, v in shec_res["flushes"].items()}
+    folds.update({f"clay {key}": v for key, v in clay_res["flushes"].items()})
+    say("wide", f"walls: shec {t1 - t0:.3f} s (decodes "
+                f"{shec_res['decode_s']:.3f}), clay {t2 - t1:.3f} s, "
+                f"widecorpus {t3 - t2:.3f} s; shec writes "
+                f"{shec_res['bytes'] / shec_res['write_s'] / 1e9:.3f} GB/s "
+                f"and reads "
+                f"{2 * shec_res['bytes'] / shec_res['read_s'] / 1e9:.3f} "
+                f"GB/s of data; clay writes "
+                f"{clay_res['bytes'] / clay_res['write_s'] / 1e9:.3f} GB/s, "
+                f"reads "
+                f"{clay_res['read_bytes'] / clay_res['read_s'] / 1e9:.3f} "
+                f"GB/s; flushes (count, ops a flush, most): " + "; ".join(
+                    f"{kind} {v[0]}, {v[1] / v[0]:.2f}, {v[2]}"
+                    for kind, v in folds.items()))
+    return counts, {"shec": shec_res, "clay": clay_res, "folds": folds}
+
+
+def check_wide_path(counts: dict[str, int], result: dict) -> None:
+    """The wide path launched a region kernel (K1 or K2, as the race
+    picked) and G1, no plain version, and no kernel pick skipped a
+    candidate; every SHEC encode flush took the fused op; every SHEC
+    fold of one lost data chunk read fewer than k rows; at least one
+    sub-chunk flush and one repair flush carried more than one op."""
+    say("launches", f"wide path: {json.dumps(counts)}")
+    if counts["gf_bitterm"] + counts["gf_bitxor"] <= 0:
+        raise AssertionError("no region kernel launched on the wide path")
+    if counts[CRC_KERNEL[1]] <= 0:
+        raise AssertionError(f"{CRC_KERNEL[1]} never launched on the wide "
+                             "path")
+    if counts["plain"]:
+        raise AssertionError(f"a plain version ran {counts['plain']} times "
+                             "on the wide path")
+    picks = kernel_profiler().picks()
+    skipped = {sig: p["skipped"] for sig, p in picks.items() if p["skipped"]}
+    if skipped:
+        raise AssertionError(f"kernel picks skipped candidates: {skipped}")
+    shec, folds = result["shec"], result["folds"]
+    writes = folds.get("shec encode", [0, 0, 0])[0]
+    if not writes or shec["fused"] != writes:
+        raise AssertionError(f"{writes} shec encode flushes took the fused "
+                             f"op {shec['fused']} times")
+    rows = shec["narrow_rows"]
+    if not rows or max(rows) >= shec["k"]:
+        raise AssertionError(f"shec folds of one lost data chunk read {rows} "
+                             f"rows, not fewer than k={shec['k']}")
+    sub = max(folds.get(f"clay subchunk {op}", [0, 0, 0])[2]
+              for op in ("encode", "decode"))
+    rep = folds.get("clay repair", [0, 0, 0])[2]
+    if sub < 2 or rep < 2:
+        raise AssertionError(f"the most ops in one sub-chunk flush was {sub} "
+                             f"and in one repair flush {rep}, not above 1")
+    say("launches", f"wide path: {len(picks)} kernel picks in the run, none "
+                    f"skipped; {writes} shec encode flushes all fused; "
+                    f"narrow folds of {sorted(set(rows))} rows; at most "
+                    f"{sub} ops in a sub-chunk flush and {rep} in a repair "
+                    f"flush")
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -1345,6 +1744,13 @@ def main() -> int:
                  "data generation, staging, the oracle and crc checks")
     check_write_path(write_counts, write_result, csum_before)
     crc_row["launches"] = write_counts[CRC_KERNEL[1]]
+    before = profile_totals()
+    t_wide = time.perf_counter()
+    wide_counts, wide_result = wide_path(dev, rng, **WIDE)
+    profile_line(time.perf_counter() - t_wide, before, "wide path",
+                 "data generation, CLAY's coupling on the host, the numpy "
+                 "codecs' checks")
+    check_wide_path(wide_counts, wide_result)
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

@@ -228,3 +228,120 @@ def test_write_path_check_refuses_each_fault(fault):
         result["mixed"].update(launches=0, g1=0, d2h=0)
     with pytest.raises(AssertionError):
         chip_smoke.check_write_path(counts, result)
+
+
+#: a small wide path for the CPU: 4 threads x 2 stripes of 8 x 8 KiB, a
+#: 64 KiB SHEC object, 8 CLAY objects
+SMALL_WIDE = dict(threads=4, per_thread=2, chunk=8192,
+                  shec=dict(k=8, m=4, c=3), shec_object=64 << 10,
+                  shec_prefix=4096, clay=dict(k=8, m=4, d=11),
+                  clay_objects=8, clay_erased=(0, 3, 8, 11),
+                  batcher=chip_smoke.WRITE["batcher"])
+
+
+def test_wide_path_rehearsal_on_cpu(capsys):
+    """Phases 12-14 at a small size with device=cpu: every SHEC erasure
+    set of 1-3 chunks decodes or is refused as the numpy codec does,
+    every parity, csum, read and repair checks out, SHEC's one-lost
+    folds read its window, the four wide corpus directories match; but
+    the plain versions ran, which check_wide_path must refuse."""
+    counts, result = chip_smoke.wide_path(
+        torch.device("cpu"), np.random.default_rng(6), **SMALL_WIDE)
+    out = capsys.readouterr().out
+    assert "12/12, 64/66, 200/220 decode" in out
+    assert "repair_chunk" in out and "(4 directories)" in out
+    assert "[wide] walls:" in out
+    shec = result["shec"]
+    assert shec["narrow_rows"] and set(shec["narrow_rows"]) == {6}
+    folds = result["folds"]
+    assert shec["fused"] == folds["shec encode"][0] > 0
+    assert folds["clay subchunk encode"][1] == 8
+    assert folds["clay repair"][1] == 8 * 12
+    assert folds["clay subchunk decode"][1] == 8
+    assert counts["plain"] > 0
+    assert counts["gf_bitterm"] == counts["gf_bitxor"] == 0
+    with pytest.raises(AssertionError, match="no region kernel"):
+        chip_smoke.check_wide_path(counts, result)
+
+
+def test_corpus_grids_split_the_fifteen_directories():
+    """Phase 7 checks the 11 matrix and bit-matrix directories, phase 14
+    the four wide-code ones."""
+    plain, wide = chip_smoke.corpus_grid(False), chip_smoke.corpus_grid(True)
+    assert len(plain) == 11 and len(wide) == 4
+    assert {p for p, _ in wide} == {"lrc", "shec", "clay"}
+
+
+def _passing_wide():
+    counts = {"gf_bitterm": 900, "gf_bitxor": 700, "gf_sched_xor": 0,
+              "crc32c_chunks": 32, "plain": 0}
+    result = {"shec": {"fused": 30, "k": 8, "narrow_rows": [6, 6, 6]},
+              "folds": {"shec encode": [30, 64, 4],
+                        "shec decode": [35, 128, 8],
+                        "clay subchunk encode": [32, 64, 3],
+                        "clay repair": [90, 192, 5],
+                        "clay subchunk decode": [2, 16, 8]}}
+    return counts, result
+
+
+@pytest.mark.parametrize("fault", ["plain ran", "no region kernel",
+                                   "skipped pick", "not narrow",
+                                   "no narrow fold", "no G1",
+                                   "unfused flush", "sub-chunk alone",
+                                   "repair alone"])
+def test_wide_path_check_refuses_each_fault(fault, monkeypatch):
+    picks = {"pick/8x8/m00000000/L131072": {"picked": "pallas",
+                                             "skipped": []}}
+    monkeypatch.setattr(chip_smoke, "kernel_profiler",
+                        lambda: types.SimpleNamespace(picks=lambda: picks))
+    counts, result = _passing_wide()
+    chip_smoke.check_wide_path(counts, result)
+    counts["gf_bitxor"] = 0  # one region kernel alone passes too
+    chip_smoke.check_wide_path(counts, result)
+    if fault == "plain ran":
+        counts["plain"] = 1
+    elif fault == "no region kernel":
+        counts["gf_bitterm"] = 0
+    elif fault == "skipped pick":
+        picks["pick/8x8/m00000000/L131072"]["skipped"] = ["bitxor"]
+    elif fault == "not narrow":
+        result["shec"]["narrow_rows"] = [6, 8]
+    elif fault == "no narrow fold":
+        result["shec"]["narrow_rows"] = []
+    elif fault == "no G1":
+        counts["crc32c_chunks"] = 0
+    elif fault == "unfused flush":
+        result["shec"]["fused"] = 29
+    elif fault == "sub-chunk alone":
+        result["folds"]["clay subchunk encode"][2] = 1
+        result["folds"]["clay subchunk decode"][2] = 1
+    else:
+        result["folds"]["clay repair"][2] = 1
+    with pytest.raises(AssertionError):
+        chip_smoke.check_wide_path(counts, result)
+
+
+def test_recorded_flushes_sees_each_fold_kind_and_lets_go():
+    """recorded_flushes, which the wide phases wrap their batchers in,
+    records every flush with its kind and ops, and puts the batcher's
+    own flush methods back after."""
+    from ceph_tpu_torch import ec
+    from ceph_tpu_torch.ec.batcher import ECBatcher
+
+    codec = ec.factory("clay", {"k": "4", "m": "2", "d": "5",
+                                "device": "cpu"})
+    b = ECBatcher(window_us=50)
+    L = codec.alpha * 4
+    data = np.random.default_rng(8).integers(0, 256, (4, L), dtype=np.uint8)
+    flushes = []
+    with chip_smoke.recorded_flushes(b, flushes):
+        parity, _ = b.encode(codec, data)
+        full = np.concatenate([data, parity])
+        b.decode(codec, [0], {s: full[s] for s in range(1, 6)})
+        planes = codec.repair_planes(1)
+        b.repair(codec, 1, {h: full[h].reshape(codec.alpha, -1)[planes]
+                            for h in (0, 2, 3, 4, 5)}, L)
+    assert [(f[0], f[2]) for f in flushes] == [
+        ("subchunk encode", 1), ("subchunk decode", 1), ("repair", 1)]
+    assert chip_smoke.fold_summary(flushes)["repair"] == [1, 1, 1]
+    assert "_flush_repair" not in vars(b)

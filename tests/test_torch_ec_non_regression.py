@@ -1,14 +1,16 @@
 """The port's ec_non_regression tool on the CPU against the archives of
 corpus/, which the JAX package's tool wrote.
 
-``--check --device cpu`` verifies the 11 directories of the port's grid
-(jerasure, isa and tpu); ``--create`` into a temporary directory
-reproduces the same 11 directories byte for byte.  corpus/ itself is
+``--check --device cpu`` verifies the 15 directories of the port's grid,
+which is the JAX package's (jerasure, isa, lrc, shec, clay and tpu), on
+the torch backend and on the native one; ``--create`` into a temporary
+directory reproduces the same 15 directories byte for byte.  corpus/ itself is
 only read.  Byte comparisons: tolerance 0.
 """
 
 import os
 
+import pytest
 import torch
 
 from ceph_tpu.tools import ec_non_regression as ref_nr
@@ -28,26 +30,26 @@ def _dirs(base):
 
 
 def test_grid_is_the_reference_grid_of_the_ported_plugins():
-    assert len(nr.DEFAULT_GRID) == 11
-    ported = [(p, prof) for p, prof in ref_nr.DEFAULT_GRID
-              if p in ("jerasure", "isa", "tpu")]
-    assert nr.DEFAULT_GRID == ported
+    assert len(nr.DEFAULT_GRID) == 15
+    assert nr.DEFAULT_GRID == ref_nr.DEFAULT_GRID
     assert nr.STRIPE_WIDTH == ref_nr.STRIPE_WIDTH
     assert nr.payload(4096) == ref_nr.payload(4096)
     assert all(os.path.isdir(d) for d in _dirs(CORPUS))
 
 
-def test_check_passes_on_the_corpus(capsys):
-    assert nr.main(["--check", "--base", CORPUS, "--device", "cpu"]) == 0
+@pytest.mark.parametrize("backend", [[], ["--backend", "native"]])
+def test_check_passes_on_the_corpus(capsys, backend):
+    assert nr.main(["--check", "--base", CORPUS, "--device", "cpu"]
+                   + backend) == 0
     out = capsys.readouterr().out
-    assert "all configurations byte-exact vs archive (11 directories)" \
+    assert "all configurations byte-exact vs archive (15 directories)" \
         in out
 
 
 def test_create_reproduces_the_corpus(tmp_path, capsys):
     base = str(tmp_path / "corpus")
     assert nr.main(["--create", "--base", base, "--device", "cpu"]) == 0
-    assert capsys.readouterr().out.count("archived ") == 11
+    assert capsys.readouterr().out.count("archived ") == 15
     assert sorted(os.listdir(base)) == sorted(
         os.path.basename(d) for d in _dirs(CORPUS))
     for d in _dirs(CORPUS):
@@ -66,7 +68,7 @@ def test_check_reports_a_drifted_chunk(tmp_path, capsys):
     base = str(tmp_path / "corpus")
     nr.create(base, None, "cpu")
     grid = [g for g in nr.DEFAULT_GRID
-            if g[1]["technique"] == "liberation"]
+            if g[1].get("technique") == "liberation"]
     path = os.path.join(nr.config_dir(base, *grid[0]), "chunk.5")
     with open(path, "r+b") as f:
         b = f.read(1)
@@ -74,3 +76,31 @@ def test_check_reports_a_drifted_chunk(tmp_path, capsys):
         f.write(bytes([b[0] ^ 1]))
     assert nr.check(base, None, "cpu", grid) == 1
     assert "PARITY DRIFT" in capsys.readouterr().err
+
+
+def test_decode_check_drops_one_data_chunk_of_the_locality_codes(
+        tmp_path, capsys):
+    """The decode check erases chunk 0 of an lrc or shec archive (not
+    MDS against every pattern of m) and the first m chunks of the
+    others; a drifted decode of the shec archive is reported."""
+    from ceph_tpu_torch.ec.general_code import GeneralMatrixCode
+
+    base = str(tmp_path / "corpus")
+    grid = [g for g in nr.DEFAULT_GRID if g[0] in ("shec", "clay")]
+    nr.create(base, None, "cpu")
+    seen = []
+    real = GeneralMatrixCode.decode_chunks
+
+    def spy(self, want, chunks):
+        seen.append(list(want))
+        out = real(self, want, chunks)
+        return {i: c ^ 1 for i, c in out.items()}
+
+    GeneralMatrixCode.decode_chunks = spy
+    try:
+        assert nr.check(base, None, "cpu", grid) == 1
+    finally:
+        GeneralMatrixCode.decode_chunks = real
+    assert seen == [[0]]
+    assert "DECODE DRIFT" in capsys.readouterr().err
+    assert nr.check(base, None, "cpu", grid) == 0

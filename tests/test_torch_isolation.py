@@ -86,6 +86,30 @@ def test_write_path_modules_import_alone():
     assert out.stdout.strip() == ""
 
 
+#: the modules of the wide and local codes, imported one by one in a
+#: fresh interpreter by test_wide_code_modules_import_alone
+WIDE_CODE_MODULES = ("ceph_tpu_torch.ec.general_code",
+                     "ceph_tpu_torch.ec.plugin_lrc",
+                     "ceph_tpu_torch.ec.plugin_shec",
+                     "ceph_tpu_torch.ec.plugin_clay")
+
+
+def test_wide_code_modules_import_alone():
+    """Importing each module of the wide and local codes, one after
+    another in a fresh interpreter, loads neither jax nor ceph_tpu, and
+    the three plugins register."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    probe = _PROBE_EACH + (
+        "\nfrom ceph_tpu_torch.ec import registered\n"
+        "print(*sorted(set(registered()) & {'clay', 'lrc', 'shec'}))\n")
+    out = subprocess.run([sys.executable, "-c", probe,
+                          *WIDE_CODE_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clay lrc shec"
+
+
 def _sources():
     for root, _dirs, files in os.walk(PKG):
         for f in files:

@@ -199,12 +199,21 @@ def test_small_apply_stays_on_host_and_is_counted():
     ("isa", {}), ("xor", {})])
 def test_backend_default_and_native(plugin, prof):
     """Each plugin defaults to the torch backend on the card (no card
-    here: construction raises); ``backend=native`` is not ported and
-    raises ErasureCodeError."""
+    here: construction raises); ``backend=native`` runs on the host with
+    no device and gives the torch codec's bytes, and an explicit
+    ``auto`` resolves to ``native``, as in the JAX package."""
     codec = ec.factory(plugin, dict(prof, device="cpu"))
     assert codec._backend == "torch" and codec.device == CPU
-    with pytest.raises(ec.ErasureCodeError):
-        ec.factory(plugin, dict(prof, backend="native", device="cpu"))
+    host = ec.factory(plugin, dict(prof, backend="native", device="cpu"))
+    assert host._backend == "native" and host.device is None
+    assert ec.factory(plugin, dict(prof, backend="auto"))._backend == \
+        "native"
+    data = np.random.default_rng(9).integers(0, 256, 64 * 1024,
+                                             dtype=np.uint8)
+    want = codec.encode(data)
+    got = host.encode(data)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[i], want[i]) for i in want)
     if not torch.cuda.is_available():
         with pytest.raises(ec.ErasureCodeError):
             ec.factory(plugin, dict(prof))

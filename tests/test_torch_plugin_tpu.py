@@ -258,7 +258,8 @@ def test_device_cuda_without_card_raises():
 def test_registry_and_profile_errors():
     assert "tpu" in ec.registered()
     with pytest.raises(ec.ErasureCodeError):
-        ec.factory("clay", {"device": "cpu"})  # not ported yet
+        ec.factory("nope", {"device": "cpu"})  # no such plugin
+    assert ec.factory("clay", {"device": "cpu"}).alpha == 64  # ported
     with pytest.raises(ec.ErasureCodeError):
         ec.factory("tpu", {"technique": "nope", "device": "cpu"})
     with pytest.raises(ec.ErasureCodeError):
