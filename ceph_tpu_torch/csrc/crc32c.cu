@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gf2_mma.cuh"
+
 namespace g1 {
 
 // What one instantiation computes with: binary or int8 products, kV
@@ -96,14 +98,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

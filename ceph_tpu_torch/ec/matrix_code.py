@@ -41,9 +41,10 @@ from ..utils.perf import kernel_profiler
 from .interface import ChunkMap, ErasureCode, ErasureCodeError, Flags
 
 
-#: deterministic candidate order the auto-tuner races — hand-written
-#: kernels only, so the plain version is never a candidate on the card
-KERNEL_RACE_ORDER = ("bitxor", "pallas")
+#: deterministic candidate order the auto-tuner races — the JAX
+#: package's order less its plain ``xla`` graph: hand-written kernels
+#: only, so the plain version is never a candidate on the card
+KERNEL_RACE_ORDER = ("bitxor", "pallas", "mxu")
 
 
 def _shape_bucket(L: int) -> int:

@@ -1,14 +1,15 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/``: the
-region kernels of gf_region.cu and the CRC32C kernel of crc32c.cu).
+region kernels of gf_region.cu, the binary tensor-core region product of
+gf_bitmm.cu and the CRC32C kernel of crc32c.cu).
 
 Each source compiles with its own ``nvcc`` for Hopper (``sm_90a``), all
 started together, and one more ``nvcc`` links the objects into
 ``build/libceph_tpu_torch.so``, a shared library with a plain C interface
 that ctypes loads.  The build happens at first use, under a lock (a
 thread lock and a file lock, so concurrent processes of one checkout
-build once), and again whenever a source in ``csrc/`` is newer than the
-library — the same staleness rule as the JAX package's ``ops/native.py``
-applies to ``native/``.
+build once), and again whenever a source or header in ``csrc/`` is
+newer than the library — the same staleness rule as the JAX package's
+``ops/native.py`` applies to ``native/``.
 
 Every C entry returns its ``cudaGetLastError()``; ``check`` raises
 ``CudaKernelError`` when that is not 0.
@@ -29,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 
 #: the CUDA sources of the library, csrc/<name>.cu
-SOURCES = ("gf_region", "crc32c")
+SOURCES = ("gf_region", "gf_bitmm", "crc32c")
 LIBRARY = "ceph_tpu_torch"
 
 #: flags of every compile; NVCC_FLAGS builds a shared library in one step
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "gf_bitterm": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
     "gf_bitxor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
     "gf_sched_xor": (_I, [_P, _P, _P, _P, _I, _I, _I, _LL, _P]),
+    "gf_bitmm": (_I, [_P, _P, _P, _I, _I, _LL, _P]),
     "crc32c_chunks": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
                            ctypes.c_uint32, _P]),
     "gf_smem_optin": (_I, [ctypes.POINTER(_I)]),

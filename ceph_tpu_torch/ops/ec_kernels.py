@@ -32,8 +32,12 @@ Kernel realizations (the names of the ``kernel=`` profile key, KERNELS):
   registers, with the rows of gf256.bitmatrix(M) as a CSR (bitxor_plan);
   its plain version (gf_bitxor_graph) runs the CSE'd XOR schedule of
   ops/xor_schedule on a CPU tensor, as the JAX body does.
-- ``mxu``    — the bit-matrix GEMM of the JAX package; not ported yet, so
-  ``kernel_supports`` answers False for it.
+- ``mxu``    — the GF(2) bit-matrix product on the binary tensor cores,
+  the CUDA kernel ``gf_bitmm`` of ``csrc/gf_bitmm.cu`` (wrapper
+  gf_bitmm_lanes, fragment table bitmm_plan): bitmatrix(M) (8r, 8c)
+  times the data's bit-planes mod 2, 8c <= 256 as in the JAX package;
+  its plain version (gf_matmul_mxu_graph) is a float32 dot of 0/1 planes
+  on a CPU tensor.
 
 ScheduledXor is the third op: B @ rows over GF(2) for the bit-matrix
 codes, whose packet rows are planes already.  It launches the CUDA kernel
@@ -50,8 +54,8 @@ multiplies and left shifts wrap exactly like uint32 ones.
 A wrapper takes its plain version only because the tensor it was given
 lies on the CPU; on a CUDA tensor it launches its kernel or raises.
 Launches are counted in LAUNCHES (``gf_bitterm``, ``gf_bitxor``,
-``gf_sched_xor``, the CRC32C kernel ``crc32c_chunks`` of ops/checksum.py,
-and ``plain`` for every run of a plain version).
+``gf_bitmm``, ``gf_sched_xor``, the CRC32C kernel ``crc32c_chunks`` of
+ops/checksum.py, and ``plain`` for every run of a plain version).
 """
 
 from __future__ import annotations
@@ -73,8 +77,8 @@ KERNELS = ("xla", "pallas", "mxu", "bitxor")
 
 #: launch counters: each wrapper adds one where it launches its kernel,
 #: and every run of a plain version adds one to ``plain``
-LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "gf_sched_xor": 0,
-            "crc32c_chunks": 0, "plain": 0}
+LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "gf_bitmm": 0,
+            "gf_sched_xor": 0, "crc32c_chunks": 0, "plain": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -100,20 +104,25 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     input ``shape``) on ``device`` — the auto-selection viability guard:
     a False here means SKIP the candidate, never try-and-raise.
 
-    - ``mxu`` is not ported yet;
+    - ``mxu`` needs 8c <= 256 everywhere (the JAX package's rule: one
+      k-step of the binary product on the card);
     - ``xla`` is the plain version, viable only on the CPU;
-    - on the CPU ``pallas`` and ``bitxor`` run their plain versions;
+    - on the CPU ``pallas``, ``bitxor`` and ``mxu`` run their plain
+      versions;
     - on the card ``pallas`` needs its nibble table and coefficient
-      flags, 33 bytes a coefficient, to fit a block's shared memory, and
+      flags, 33 bytes a coefficient, to fit a block's shared memory,
       ``bitxor`` needs the (8c + 1) bit-planes of a
-      BITXOR_MIN_THREADS-thread block to fit it.
+      BITXOR_MIN_THREADS-thread block to fit it, and ``mxu`` its
+      fragment table, 256 bytes an output row.
     """
-    if kernel not in KERNELS or kernel == "mxu":
+    if kernel not in KERNELS:
         return False
     M = np.asarray(M)
     if M.ndim != 2 or 0 in M.shape:
         return False
     if shape is not None and tuple(shape)[0] != M.shape[1]:
+        return False
+    if kernel == "mxu" and 8 * M.shape[1] > 256:
         return False
     device = torch.device(device)
     if device.type == "cpu":
@@ -124,6 +133,8 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     smem = cuda_lib.smem_optin(device)
     if kernel == "pallas":
         return M.shape[0] * M.shape[1] * 33 <= smem
+    if kernel == "mxu":
+        return M.shape[0] * BITMM_ROW_BYTES <= smem
     return (8 * M.shape[1] + 1) * 4 * BITXOR_MIN_THREADS <= smem
 
 
@@ -442,13 +453,141 @@ def gf_matmul_graph(M: np.ndarray):
 
 def gf_region_graph(M: np.ndarray, kernel: str = "xla"):
     """Plain byte-domain fn(data (c, L) u8) -> (r, L) u8 for a named
-    kernel realization: ``bitxor`` is K2's plain version, everything else
-    K1's (the JAX package's rule: pallas/auto lower to the xla graph)."""
-    if kernel == "mxu":
-        raise ValueError("the mxu realization is not ported yet")
+    kernel realization: ``bitxor`` is K2's plain version, ``mxu`` G4's,
+    everything else K1's (the JAX package's rule: pallas/auto lower to
+    the xla graph)."""
     if kernel == "bitxor":
         return gf_bitxor_graph(M)
+    if kernel == "mxu":
+        return gf_matmul_mxu_graph(M)
     return gf_matmul_graph(M)
+
+
+# ---------------------------------------------------------------------------
+# mxu: the GF(2) bit-matrix product on the binary tensor cores (G4)
+# ---------------------------------------------------------------------------
+
+#: bytes of gf_bitmm's fragment table a block stages per output row
+BITMM_ROW_BYTES = 256
+#: columns the plain version of G4 unpacks at a time: its float32 planes
+#: take 32 c bytes a column, so this bounds them to 2 GiB at c = 32
+_MXU_PLAIN_COLS = 1 << 21
+
+
+@dataclass(frozen=True)
+class BitmmPlan:
+    """A GF(2^8) matrix M (r, c) lowered for the gf_bitmm kernel: the B
+    fragments of mma.m16n8k256.b1 (csrc/gf2_mma.cuh) for each output row.
+
+    ``frag[i, h, 4 n + t]`` is register b_h of lane (n, t) for output row
+    i: bit 8 e + s of it is B[8 i + n, 8 (16 h + 4 t + e) + s], with
+    B = gf256.bitmatrix(M) zero-padded to 256 columns.  The kernel's A
+    fragments hold byte e of input row 16 h + 4 t + e at the same bits,
+    so each mma pairs the two by k = 8 j + s.  (r, 2, 32) uint32."""
+
+    frag: np.ndarray
+    rows: int
+    cols: int
+
+
+@functools.lru_cache(maxsize=128)
+def _cached_bitmm_plan(key: bytes, shape: tuple[int, int]) -> BitmmPlan:
+    M = np.frombuffer(key, dtype=np.uint8).reshape(shape)
+    r, c = shape
+    B = np.zeros((8 * r, 256), dtype=np.uint64)
+    B[:, :8 * c] = gf256.bitmatrix(M)
+    # [i, n, h, t, beta] -> word [i, h, 4 n + t]
+    words = (B.reshape(r, 8, 2, 4, 32) << np.arange(32, dtype=np.uint64)
+             ).sum(-1)
+    frag = words.transpose(0, 2, 1, 3).reshape(r, 2, 32).astype(np.uint32)
+    return BitmmPlan(frag=np.ascontiguousarray(frag), rows=r, cols=c)
+
+
+def bitmm_plan(M: np.ndarray) -> BitmmPlan:
+    """The gf_bitmm plan of matrix ``M`` (8c <= 256), cached per
+    matrix."""
+    M = np.ascontiguousarray(M, dtype=np.uint8)
+    if 8 * M.shape[1] > 256:
+        raise ValueError(f"gf_bitmm needs c <= 32, got c = {M.shape[1]}")
+    return _cached_bitmm_plan(M.tobytes(), M.shape)
+
+
+def _bitmm_bytes(u8: torch.Tensor, bits: np.ndarray) -> torch.Tensor:
+    """Plain version of G4: (c, n) uint8 -> (r, n) uint8.  The bytes are
+    unpacked into LSB-first 0/1 planes (8c, n), multiplied by ``bits`` =
+    gf256.bitmatrix(M) (8r, 8c) in float32 — exact, since a sum is at
+    most 8c <= 256 — and the low bit of each sum is packed back into
+    bytes, as the JAX graph does with bf16 operands."""
+    _count("plain")
+    c, n = u8.shape
+    r = bits.shape[0] // 8
+    dev = u8.device
+    B = torch.from_numpy(np.ascontiguousarray(bits, dtype=np.float32)).to(dev)
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+    for lo in range(0, n, _MXU_PLAIN_COLS):
+        part = u8[:, lo:lo + _MXU_PLAIN_COLS]
+        w = part.shape[1]
+        planes = ((part[:, None, :] >> shifts[None, :, None]) & 1)
+        acc = B @ planes.reshape(8 * c, w).to(torch.float32)
+        low = acc.to(torch.int32).reshape(r, 8, w) & 1
+        out[:, lo:lo + w] = (low << shifts.to(torch.int32)[None, :, None]
+                             ).sum(1).to(torch.uint8)
+    return out
+
+
+def gf_bitmm_lanes(x32: torch.Tensor, bits: np.ndarray, plan=None, *,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """G4 wrapper: (c, n4) 32-bit lanes -> (r, n4) int32 lanes.
+
+    On a CPU tensor it runs the plain version with ``bits`` =
+    gf256.bitmatrix(M).  On a CUDA tensor it launches ``gf_bitmm`` with
+    ``plan`` = (frag tensor, BitmmPlan), the tensor on the same device,
+    and needs c <= 32, n4 % 4 == 0 and 16-byte alignment.  ``out``
+    (r, n4) int32, when given, receives the lanes (_out_lanes)."""
+    if x32.device.type == "cpu":
+        y8 = _bitmm_bytes(x32.contiguous().view(torch.uint8), bits)
+        return _into(y8.view(torch.int32), out)
+    if x32.device.type != "cuda":
+        raise ValueError(f"gf_bitmm: unsupported device {x32.device}")
+    if plan is None:
+        raise ValueError("gf_bitmm: a CUDA tensor needs the device plan")
+    frag, p = plan
+    _check_lanes(x32, p.cols, "gf_bitmm")
+    n4 = x32.shape[1]
+    if (not x32.is_contiguous() or n4 % 4 or x32.data_ptr() % 16
+            or frag.device != x32.device):
+        raise ValueError("gf_bitmm: want contiguous, 16-byte aligned "
+                         "lanes with n4 % 4 == 0 and the plan on the "
+                         "same device")
+    from . import cuda_lib
+    y32 = _out_lanes(out, p.rows, x32, "gf_bitmm")
+    with torch.cuda.device(x32.device):
+        stream = torch.cuda.current_stream(x32.device).cuda_stream
+        err = cuda_lib.lib().gf_bitmm(
+            x32.data_ptr(), y32.data_ptr(), frag.data_ptr(), p.rows, p.cols,
+            4 * n4, stream)
+    cuda_lib.check(err, "gf_bitmm launch")
+    _count("gf_bitmm")
+    return y32
+
+
+def gf_matmul_mxu_graph(M: np.ndarray):
+    """fn(data (c, L) uint8 tensor) -> (r, L) uint8 computing M @ data
+    over GF(2^8) as the bit-matrix product mod 2; the plain version of
+    G4, on any device.  Needs c <= 32, as the JAX graph does."""
+    M = np.asarray(M, dtype=np.uint8)
+    r, c = M.shape
+    if 8 * c > 256:
+        raise ValueError("the mxu realization needs c <= 32")
+    bits = gf256.bitmatrix(M)
+
+    def fn(data_u8):
+        if data_u8.shape[0] != c:
+            raise ValueError(f"expected {c} rows, got {data_u8.shape[0]}")
+        return _bitmm_bytes(data_u8, bits)
+
+    return fn
 
 
 def region_fn(M: np.ndarray, kernel: str = "auto"):
@@ -746,8 +885,8 @@ class RegionMatmul(_LaneOp):
     independent), which is how a stripe batch is fed in one launch: a
     (c, batch*chunk) tensor.  PyTorch runs eagerly, so the JAX package's
     per-shape jit LRU has no counterpart; what is cached is the
-    matrix's device-resident coefficient table (K1) or plan (K2), built
-    at first launch behind ``_cache_lock``.
+    matrix's device-resident coefficient table (K1), plan (K2) or
+    fragment table (G4), built at first launch behind ``_cache_lock``.
     """
 
     def __init__(self, M: np.ndarray, *, kernel: str = "auto",
@@ -755,8 +894,8 @@ class RegionMatmul(_LaneOp):
         """``kernel`` picks the realization (KERNELS): ``auto`` is the
         bit-term kernel on the card and the plain ``xla`` version on the
         CPU; an explicit name pins it and raises ValueError where
-        kernel_supports says no (``xla`` on the card, ``mxu``
-        anywhere).  ``device="cuda"`` with no card raises."""
+        kernel_supports says no (``xla`` on the card, ``mxu`` above 32
+        columns).  ``device="cuda"`` with no card raises."""
         self.M = np.ascontiguousarray(M, dtype=np.uint8)
         self.r, self.c = self.M.shape
         if kernel not in ("auto",) + KERNELS:
@@ -768,17 +907,19 @@ class RegionMatmul(_LaneOp):
             raise ValueError(f"kernel {kernel!r} cannot run this "
                              f"{self.r}x{self.c} matrix on {self.device}")
         self.kernel = kernel
-        self._terms = _terms(self.M) if kernel != "bitxor" else None
+        self._terms = (_terms(self.M) if kernel in ("xla", "pallas")
+                       else None)
         self._sched = bitxor_schedule(self.M) if kernel == "bitxor" \
             else None
+        self._bits = gf256.bitmatrix(self.M) if kernel == "mxu" else None
         self._dev_state = None
         # one matmul op serves many threads; the device state is built
         # once, under the lock
         self._cache_lock = threading.Lock()
 
     def _device_state(self):
-        """K1's (coef, tab) or K2's (ptr, idx, BitxorPlan) on the card,
-        built at first use."""
+        """K1's (coef, tab), K2's (ptr, idx, BitxorPlan) or G4's (frag,
+        BitmmPlan) on the card, built at first use."""
         from ..utils import staging
 
         with self._cache_lock:
@@ -787,6 +928,10 @@ class RegionMatmul(_LaneOp):
                 if self.kernel == "pallas":
                     self._dev_state = staging.upload_tables(
                         (self.M, nibble_table(self.M)), dev)
+                elif self.kernel == "mxu":
+                    plan = bitmm_plan(self.M)
+                    self._dev_state = staging.upload_tables(
+                        (plan.frag,), dev) + (plan,)
                 else:
                     plan = bitxor_plan(self.M)
                     self._dev_state = staging.upload_tables(
@@ -801,6 +946,8 @@ class RegionMatmul(_LaneOp):
         state = None if x32.device.type == "cpu" else self._device_state()
         if self.kernel == "bitxor":
             return gf_bitxor_lanes(x32, self._sched, state, out=out32)
+        if self.kernel == "mxu":
+            return gf_bitmm_lanes(x32, self._bits, state, out=out32)
         return gf_bitterm_lanes(x32, self._terms, state, out=out32)
 
 

@@ -1,0 +1,195 @@
+"""The port's BASELINE sweep tool: each benchmark configuration as a
+subprocess with a timeout and retries, results kept in a resumable state
+file.
+
+The twin of the JAX package's ``ceph_tpu/tools/bench_sweep.py`` for its
+BASELINE rows (configs 1-5): the matrix codes ride tools/bench_tpu (the
+kernels on the card, digest-verified), SHEC and CLAY ride
+tools/ec_benchmark ``--json``, on the ``native`` backend and on
+``torch`` (the reference's ``jax`` rows).  The reference's ``bench_root``
+rows drive its repo-root bench.py cluster legs and are not ported here.
+Every child gets ``--device``.
+
+The state file lies under the git-ignored ``ceph_tpu_torch/build/``
+(``BENCH_SWEEP.json``, or ``BENCH_SWEEP_CPU.json`` for ``--device cpu``,
+so a CPU number never fills a card row).  It is rewritten atomically
+after every configuration; a re-run skips configurations that already
+hold a result unless ``--fresh`` or ``--only`` is given.
+
+    python -m ceph_tpu_torch.tools.bench_sweep               # resume/fill
+    python -m ceph_tpu_torch.tools.bench_sweep --only headline_1M_b64
+    python -m ceph_tpu_torch.tools.bench_sweep --device cpu --fresh
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+BUILD = os.path.join(REPO, "ceph_tpu_torch", "build")
+#: state file of each device
+STATE = {"cuda": os.path.join(BUILD, "BENCH_SWEEP.json"),
+         "cpu": os.path.join(BUILD, "BENCH_SWEEP_CPU.json")}
+#: the module each configuration's ``tool`` runs
+TOOLS = {"bench_tpu": "ceph_tpu_torch.tools.bench_tpu",
+         "ec_benchmark": "ceph_tpu_torch.tools.ec_benchmark"}
+
+MiB = 1024 * 1024
+
+
+def configs() -> list[dict]:
+    """The BASELINE rows, ids and arguments as the reference's with its
+    ``jax`` backend as ``torch``."""
+    out = []
+
+    def tpu(cid, k, m, stripe, batch, technique="reed_sol_van",
+            workload="encode", reps=3):
+        out.append({
+            "id": cid, "tool": "bench_tpu",
+            "argv": ["--k", str(k), "--m", str(m),
+                     "--stripe-bytes", str(stripe),
+                     "--batch", str(batch), "--reps", str(reps),
+                     "--technique", technique,
+                     "--workload", workload]})
+
+    def plugin(cid, name, params, workload="encode", size=8 * MiB,
+               iterations=5, erasures=1):
+        argv = ["--plugin", name, "--workload", workload,
+                "--size", str(size), "--iterations", str(iterations),
+                "--json"]
+        if workload == "decode":
+            argv += ["--erasures", str(erasures)]
+        for kv in params:
+            argv += ["--parameter", kv]
+        out.append({"id": cid, "tool": "ec_benchmark", "argv": argv})
+
+    # 1. BASELINE config 1: reed_sol_van k=2 m=1, 1 MiB stripe
+    tpu("rs_k2m1_1M_b64", 2, 1, MiB, 64)
+    # 2. the headline k=8 m=3: 4K-4M stripes, ~64 MiB of data a launch
+    for stripe in (4096, 64 * 1024, MiB, 4 * MiB):
+        batch = max(1, min(64, (64 * MiB) // stripe))
+        tag = (f"{stripe // 1024}K" if stripe < MiB
+               else f"{stripe // MiB}M")
+        tpu(f"headline_{tag}_b{batch}", 8, 3, stripe, batch)
+    # batch scaling at the headline point
+    for batch in (2, 8, 16, 64):
+        tpu(f"headline_1M_batch{batch}", 8, 3, MiB, batch)
+    # decode (the recovery hot path) at the headline point
+    tpu("headline_1M_decode", 8, 3, MiB, 64, workload="decode")
+    # 3. BASELINE config 3: cauchy k=8 m=4 encode and decode
+    tpu("cauchy_k8m4_1M", 8, 4, MiB, 64, technique="cauchy_good")
+    tpu("cauchy_k8m4_1M_decode", 8, 4, MiB, 64,
+        technique="cauchy_good", workload="decode")
+    # 4. BASELINE config 4: shec k=8 m=4 c=3 multi-failure decode
+    for backend in ("native", "torch"):
+        plugin(f"shec_k8m4c3_{backend}", "shec",
+               [f"backend={backend}", "k=8", "m=4", "c=3"])
+        plugin(f"shec_k8m4c3_{backend}_decode2", "shec",
+               [f"backend={backend}", "k=8", "m=4", "c=3"],
+               workload="decode", erasures=2)
+    # 5. BASELINE config 5: clay k=8 m=4 d=11 sub-chunk repair
+    for backend in ("native", "torch"):
+        plugin(f"clay_k8m4d11_{backend}", "clay",
+               [f"backend={backend}", "k=8", "m=4", "d=11"])
+        plugin(f"clay_k8m4d11_{backend}_repair1", "clay",
+               [f"backend={backend}", "k=8", "m=4", "d=11"],
+               workload="decode", erasures=1)
+    return out
+
+
+def command(cfg: dict, device: str) -> list[str]:
+    """The child process of one configuration."""
+    return ([sys.executable, "-m", TOOLS[cfg["tool"]]] + cfg["argv"]
+            + ["--device", device])
+
+
+def run_config(cfg: dict, timeout: float, device: str) -> dict:
+    """{"result": the child's last JSON line + wall_s} or {"error": ...}."""
+    t0 = time.time()
+    try:
+        proc = subprocess.run(command(cfg, device), capture_output=True,
+                              text=True, timeout=timeout, cwd=REPO)
+    except subprocess.TimeoutExpired:
+        return {"error": f"timeout after {timeout:.0f}s"}
+    if proc.returncode != 0:
+        return {"error": f"rc={proc.returncode}: "
+                         f"{proc.stderr.strip()[-500:]}"}
+    try:
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (json.JSONDecodeError, IndexError):
+        return {"error": f"bad output: {proc.stdout[-300:]}"}
+    result["wall_s"] = round(time.time() - t0, 1)
+    return {"result": result}
+
+
+def write_state(path: str, state: dict) -> None:
+    """The whole table, atomically: a kill mid-write never truncates the
+    results already measured."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(state, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--fresh", action="store_true",
+                   help="ignore (and overwrite) prior sweep state")
+    p.add_argument("--only", help="run just this config id")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--timeout", type=float, default=600.0,
+                   help="per-config subprocess timeout (s)")
+    p.add_argument("--retries", type=int, default=2)
+    args = p.parse_args(argv)
+
+    path = STATE[args.device]
+    state: dict = {}
+    if not args.fresh and os.path.exists(path):
+        try:
+            with open(path) as f:
+                state = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            state = {}
+    todo = [c for c in configs()
+            if args.only is None or c["id"] == args.only]
+    if not todo:
+        p.error(f"no configuration {args.only!r}")
+    done = skipped = failed = 0
+    for cfg in todo:
+        cid = cfg["id"]
+        prior = state.get(cid, {})
+        if "result" in prior and args.only is None:
+            skipped += 1
+            continue
+        print(f"sweep: {cid} ...", file=sys.stderr, flush=True)
+        for attempt in range(args.retries + 1):
+            entry = run_config(cfg, args.timeout, args.device)
+            if "result" in entry:
+                break
+            print(f"sweep: {cid} attempt {attempt + 1} failed: "
+                  f"{entry['error'][:200]}", file=sys.stderr, flush=True)
+        entry["attempts"] = prior.get("attempts", 0) + attempt + 1
+        entry["utc"] = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+        state[cid] = entry
+        if "result" in entry:
+            done += 1
+        else:
+            failed += 1
+        write_state(path, state)
+    measured = sum(1 for v in state.values() if "result" in v)
+    print(json.dumps({"ran": done, "skipped": skipped, "failed": failed,
+                      "measured_total": measured,
+                      "configs_total": len(configs()),
+                      "state_file": path}))
+    return 0 if failed == 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

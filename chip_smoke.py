@@ -12,12 +12,13 @@ in order, one line each:
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — nvcc builds every kernel from ceph_tpu_torch/csrc/, one
              process per source, all started together.
-3. kernels — each region kernel against its plain version on the card
-             (torch.equal) and against the numpy oracle, over the listed
-             matrices and lengths, K3 in plane-row and in packet mode;
-             CUDA-event times at the main shapes (K1 and K2 at the 3x8
-             encode and the 8x8 decode, with K1's instruction floor), with
-             K3's yardstick (a device copy of the same bytes).
+3. kernels — each region kernel (K1, K2, G4) against its plain version
+             on the card (torch.equal) and against the numpy oracle, over
+             the listed matrices and lengths, K3 in plane-row and in packet
+             mode; CUDA-event times at the main shapes (K1, K2 and G4 at
+             the 3x8 encode and the 8x8 decode, with K1's instruction
+             floor and G4's library yardstick torch._int_mm), with K3's
+             yardstick (a device copy of the same bytes).
 4. crc     — G1, the CRC32C kernel, against its plain version and the
              native library's crc32c at chunk lengths from 4 bytes to
              1 MiB + 4 on 1 to 704 rows, all-zero and all-0xFF chunks
@@ -62,16 +63,23 @@ in order, one line each:
              sub-chunk decode fold), against the numpy codec.
 14. widecorpus — tools.ec_non_regression --check on the four wide-code
              directories of corpus/ (lrc, shec, two clay).
+15. bench  — the port's bench twin (tools/bench_tpu) at BASELINE's k=8,
+             m=3: encode at 4 KiB, 64 KiB, 1 MiB and 4 MiB stripes,
+             decode and the fused encode+CRC at 1 MiB, each candidate's
+             kernel GB/s, staging and end-to-end GB/s, digests verified;
+             then tools/bench_sweep --only headline_1M_b64 through its
+             subprocess.
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
 bit-matrix path, phase 11 the write path and phases 12-14 the wide path:
 the launch counts are set to 0 before each path and read after it.
 The region kernels must have launched on the first, the scheduled-XOR
 kernel on the second, G1 and a region kernel on the third, the plain
-versions on none, and no kernel pick may have skipped a candidate;
-where the first path raced a matrix of phase 3 at its length, it must
-have pinned the kernel that phase 3 timed faster (unless the two are
-within 5 %).  On the write path every
+versions on none, and no kernel pick may have skipped a candidate but
+``mxu`` on a matrix wider than 32 columns; G4 must have launched on
+every path that raced a matrix of 32 columns or fewer; where the first
+path raced a matrix of phase 3 at its length, it must have pinned a
+kernel that phase 3 timed within 5 % of the fastest.  On the write path every
 encode flush of one length must have taken the fused encode+CRC op,
 every flush of several lengths one G1 launch per length and no fused
 op, no CRC may have run on the host, and every encode and decode flush
@@ -107,7 +115,8 @@ from ceph_tpu_torch.ec.bitmatrix_code import BitMatrixErasureCode
 from ceph_tpu_torch.ec.matrix_code import MatrixErasureCode, _shape_bucket
 from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
                                 native, xor_schedule)
-from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
+from ceph_tpu_torch.tools import (bench_sweep, bench_tpu, ec_benchmark,
+                                  ec_non_regression)
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
 
@@ -129,11 +138,17 @@ KERNELS = {
                "ceph_tpu/ops/ec_kernels.py:473"),
     "bitxor": ("gf_bitxor", "gf_bitxor", ec_kernels.gf_bitxor_graph,
                "ceph_tpu/ops/ec_kernels.py:172"),
+    "mxu": ("gf_bitmm", "gf_bitmm", ec_kernels.gf_matmul_mxu_graph,
+            "ceph_tpu/ops/ec_kernels.py:348"),
 }
+#: the CUDA source of each region kernel
+KERNEL_SOURCES = {"pallas": "ceph_tpu_torch/csrc/gf_region.cu",
+                  "bitxor": "ceph_tpu_torch/csrc/gf_region.cu",
+                  "mxu": "ceph_tpu_torch/csrc/gf_bitmm.cu"}
 #: K3: (kernel name, launch counter, TPU site)
 SCHED_KERNEL = ("gf_sched_xor", "gf_sched_xor",
                 "ceph_tpu/ops/ec_kernels.py:277")
-SOURCE = "ceph_tpu_torch/csrc/gf_region.cu"
+SOURCE = KERNEL_SOURCES["pallas"]
 
 MAIN_L = 8 << 20  # bytes per row at the main shape: 64 x 128 KiB chunks
 #: smoke_matrices timed on (c, MAIN_L) for K1 and K2, the main shape
@@ -186,6 +201,8 @@ WIDE = dict(threads=8, per_thread=8, chunk=128 << 10,
             shec_prefix=4 << 10, clay=dict(k=8, m=4, d=11),
             clay_objects=16, clay_erased=(0, 3, 8, 11),
             batcher=WRITE["batcher"])
+#: phase 15: bench_tpu's encode stripes and timed reps a candidate
+BENCH = dict(stripes=(4 << 10, 64 << 10, 1 << 20, 4 << 20), reps=4)
 #: the plugins of the wide corpus directories
 WIDE_PLUGINS = ("lrc", "shec", "clay")
 #: size flushes of the mixed-length writes (one encode a writer each)
@@ -309,6 +326,34 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def int_mm_ms(dev: torch.device, M: np.ndarray, L: int, n: int
+              ) -> float | None:
+    """G4's library yardstick: torch._int_mm of bitmatrix(M) (int8, 8r x
+    8c) by bit-planes unpacked beforehand (int8, 8c x L), the GF(2)
+    product's integer sums alone, without G4's unpack, parity and repack.
+    The planes are laid out column-major (an (L, 8c) tensor, transposed):
+    cuBLASLt refuses a row-major one at these shapes.  None where _int_mm
+    refuses the shapes."""
+    B = torch.from_numpy(gf256.bitmatrix(M).astype(np.int8)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    planes = torch.randint(0, 2, (L, B.shape[1]), dtype=torch.int8,
+                           device=dev, generator=gen).t()
+    try:
+        torch._int_mm(B, planes)
+    except RuntimeError as e:
+        say("kernels", f"gf_bitmm: torch._int_mm refuses {tuple(B.shape)} x "
+                       f"{tuple(planes.shape)}: {e}")
+        return None
+    ms = cuda_ms(lambda: torch._int_mm(B, planes), n)
+    say("kernels", f"gf_bitmm: library yardstick torch._int_mm "
+                   f"{tuple(B.shape)} x {tuple(planes.shape)} int8, "
+                   f"planes column-major (the product alone: planes "
+                   f"unpacked beforehand, no parity, no repack) "
+                   f"{ms:.4f} ms")
+    return ms
+
+
 def run_quiet(what: str, fn, *args) -> str:
     """``fn(*args)`` with its standard output captured; raises unless
     it returned 0, and returns the captured text."""
@@ -427,10 +472,13 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
         del data, x32
         bound_ms, bound_by = bound(M, main_l)
         results[realization] = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": site, "launches": 0, "max_abs_err": err,
+            "name": name, "route": "cuda",
+            "source": KERNEL_SOURCES[realization], "replaces": site,
+            "launches": 0, "max_abs_err": err,
             "ms": times[TIMED_SHAPES[0]], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (int_mm_ms(dev, M, main_l, n_time)
+                           if realization == "mxu" else None)}
         all_times[realization] = times
     return results, all_times
 
@@ -846,7 +894,7 @@ def check_write_path(counts: dict[str, int], result: dict,
     if counts[CRC_KERNEL[1]] <= 0:
         raise AssertionError(f"{CRC_KERNEL[1]} never launched on the "
                              "write path")
-    if counts["gf_bitterm"] + counts["gf_bitxor"] <= 0:
+    if sum(counts[k[1]] for k in KERNELS.values()) <= 0:
         raise AssertionError("no region kernel launched on the write path")
     if counts["plain"]:
         raise AssertionError(f"a plain version ran {counts['plain']} times "
@@ -1276,22 +1324,55 @@ def main_path(dev: torch.device, rng: np.random.Generator, *,
     return ec_kernels.launch_counts()
 
 
+def pick_cols(sig: str) -> int:
+    """The column count of a pick signature's matrix
+    (MatrixErasureCode._pick_sig: pick/<r>x<c>/m<crc>/L<bucket>)."""
+    return int(sig.split("/")[1].split("x")[1])
+
+
+def check_picks(picks: dict, counts: dict[str, int], what: str) -> None:
+    """No kernel pick skipped a candidate, but for the one skip the race
+    allows, ``mxu`` on a matrix wider than 32 columns (its signatures are
+    printed); and G4 launched wherever a race saw a matrix of 32 columns
+    or fewer.  ``picks``: the profiler's picks booked on the path."""
+    bad = {s: p["skipped"] for s, p in picks.items() if p["skipped"]
+           and (p["skipped"] != ["mxu"] or pick_cols(s) <= 32)}
+    if bad:
+        raise AssertionError(f"kernel picks skipped candidates: {bad}")
+    wide = sorted(s for s, p in picks.items() if p["skipped"])
+    narrow = [s for s, p in picks.items()
+              if p["mode"] == "auto" and pick_cols(s) <= 32]
+    if narrow and counts[KERNELS["mxu"][1]] <= 0:
+        raise AssertionError(f"{len(narrow)} races of matrices of 32 "
+                             f"columns or fewer on the {what}, and "
+                             f"{KERNELS['mxu'][1]} never launched")
+    say("launches", f"{what}: {len(picks)} kernel picks, {len(narrow)} "
+                    f"raced on matrices of <= 32 columns; "
+                    + (f"{len(wide)} skipped mxu, wider than 32 columns: "
+                       + ", ".join(wide) if wide else "none skipped"))
+
+
+def picks_since(t: float) -> dict:
+    """The profiler's kernel picks booked at or after ``t`` (time.time())."""
+    return {s: p for s, p in kernel_profiler().picks().items()
+            if p["at"] >= t}
+
+
 def check_main_path(counts: dict[str, int],
-                    counters=tuple(k[1] for k in KERNELS.values())) -> None:
+                    counters=tuple(k[1] for k in KERNELS.values()),
+                    since: float = 0.0, what: str = "main path") -> None:
     """Every launch counter in ``counters`` moved, the plain versions
-    never ran and no kernel pick skipped a candidate."""
+    never ran, and the picks booked since ``since`` pass check_picks."""
     say("launches", json.dumps(counts))
     for ctr in counters:
         if counts[ctr] <= 0:
-            raise AssertionError(f"{ctr} never launched on the main path")
+            raise AssertionError(f"{ctr} never launched on the {what}")
     if counts["plain"]:
         raise AssertionError(
-            f"a plain version ran {counts['plain']} times on the main path")
-    picks = kernel_profiler().picks()
-    skipped = {s: p["skipped"] for s, p in picks.items() if p["skipped"]}
-    if skipped:
-        raise AssertionError(f"kernel picks skipped candidates: {skipped}")
-    say("launches", f"{len(picks)} kernel picks, none skipped: "
+            f"a plain version ran {counts['plain']} times on the {what}")
+    picks = picks_since(since)
+    check_picks(picks, counts, what)
+    say("launches", f"{what} picks: "
                     + json.dumps({s: p["picked"] for s, p in picks.items()}))
 
 
@@ -1299,9 +1380,9 @@ def check_race_picks(times: dict[str, dict[str, float]],
                      rng: np.random.Generator, margin: float = 0.05
                      ) -> None:
     """The race's picks at phase 3's shapes: where the main path raced a
-    TIMED_SHAPES matrix at MAIN_L's bucket, it must have pinned the
-    kernel that phase 3 timed faster, unless the two are within
-    ``margin`` of each other.  ``times``: realization -> label -> ms."""
+    TIMED_SHAPES matrix at MAIN_L's bucket, it must have pinned a kernel
+    that phase 3 timed within ``margin`` of the fastest of the three.
+    ``times``: realization -> label -> ms."""
     picks = kernel_profiler().picks()
     mats = smoke_matrices(rng)
     for label in TIMED_SHAPES:
@@ -1309,13 +1390,12 @@ def check_race_picks(times: dict[str, dict[str, float]],
                                           _shape_bucket(MAIN_L))
         t = {k: v[label] for k, v in times.items()}
         fast = min(t, key=t.get)
-        slow = max(t, key=t.get)
         picked = picks.get(sig, {}).get("picked")
-        gap = t[slow] / t[fast] - 1
+        gap = t[picked] / t[fast] - 1 if picked in t else 0.0
         say("launches", f"race at {label}, {sig}: picked {picked}; phase 3 "
                         + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
-                        + f" ({100 * gap:.1f} % apart)")
-        if picked is not None and gap > margin and picked != fast:
+                        + f" (the pick {100 * gap:.1f} % above {fast})")
+        if gap > margin:
             raise AssertionError(f"the race pinned {picked} at {label}, "
                                  f"where phase 3 timed {fast} "
                                  f"{100 * gap:.1f} % faster")
@@ -1640,14 +1720,15 @@ def wide_path(dev: torch.device, rng: np.random.Generator, *, threads: int,
     return counts, {"shec": shec_res, "clay": clay_res, "folds": folds}
 
 
-def check_wide_path(counts: dict[str, int], result: dict) -> None:
-    """The wide path launched a region kernel (K1 or K2, as the race
-    picked) and G1, no plain version, and no kernel pick skipped a
-    candidate; every SHEC encode flush took the fused op; every SHEC
-    fold of one lost data chunk read fewer than k rows; at least one
-    sub-chunk flush and one repair flush carried more than one op."""
+def check_wide_path(counts: dict[str, int], result: dict,
+                    since: float = 0.0) -> None:
+    """The wide path launched a region kernel (K1, K2 or G4, as the race
+    picked) and G1, no plain version, and its picks pass check_picks;
+    every SHEC encode flush took the fused op; every SHEC fold of one
+    lost data chunk read fewer than k rows; at least one sub-chunk flush
+    and one repair flush carried more than one op."""
     say("launches", f"wide path: {json.dumps(counts)}")
-    if counts["gf_bitterm"] + counts["gf_bitxor"] <= 0:
+    if sum(counts[k[1]] for k in KERNELS.values()) <= 0:
         raise AssertionError("no region kernel launched on the wide path")
     if counts[CRC_KERNEL[1]] <= 0:
         raise AssertionError(f"{CRC_KERNEL[1]} never launched on the wide "
@@ -1655,10 +1736,8 @@ def check_wide_path(counts: dict[str, int], result: dict) -> None:
     if counts["plain"]:
         raise AssertionError(f"a plain version ran {counts['plain']} times "
                              "on the wide path")
-    picks = kernel_profiler().picks()
-    skipped = {sig: p["skipped"] for sig, p in picks.items() if p["skipped"]}
-    if skipped:
-        raise AssertionError(f"kernel picks skipped candidates: {skipped}")
+    picks = picks_since(since)
+    check_picks(picks, counts, "wide path")
     shec, folds = result["shec"], result["folds"]
     writes = folds.get("shec encode", [0, 0, 0])[0]
     if not writes or shec["fused"] != writes:
@@ -1674,11 +1753,85 @@ def check_wide_path(counts: dict[str, int], result: dict) -> None:
     if sub < 2 or rep < 2:
         raise AssertionError(f"the most ops in one sub-chunk flush was {sub} "
                              f"and in one repair flush {rep}, not above 1")
-    say("launches", f"wide path: {len(picks)} kernel picks in the run, none "
-                    f"skipped; {writes} shec encode flushes all fused; "
+    say("launches", f"wide path: {writes} shec encode flushes all fused; "
                     f"narrow folds of {sorted(set(rows))} rows; at most "
                     f"{sub} ops in a sub-chunk flush and {rep} in a repair "
                     f"flush")
+
+
+def bench_runs() -> list[tuple[str, list[str]]]:
+    """Phase 15's bench_tpu runs at BASELINE's k=8 m=3: encode at 4 KiB
+    to 4 MiB stripes (batch min(64, 64 MiB / stripe), the sweep's rule),
+    decode and the fused encode+CRC at 1 MiB."""
+    runs = []
+    for stripe in BENCH["stripes"]:
+        batch = max(1, min(64, (64 << 20) // stripe))
+        runs.append((f"encode {stripe >> 10} KiB",
+                     ["--stripe-bytes", str(stripe), "--batch", str(batch)]))
+    one = ["--stripe-bytes", str(1 << 20), "--batch", "64"]
+    runs.append(("decode 1024 KiB", one + ["--workload", "decode"]))
+    runs.append(("encode+csum 1024 KiB", one + ["--csum"]))
+    return [(label, ["--k", "8", "--m", "3", "--reps", str(BENCH["reps"])]
+             + argv) for label, argv in runs]
+
+
+def check_bench(line: dict, device) -> None:
+    """A bench line's digests were verified and it measured a rate for
+    every realization that kernel_supports lets run its matrix on
+    ``device``, and for no other."""
+    W = bench_tpu.working_matrix(line["k"], line["m"], "reed_sol_van",
+                                 line["workload"].split("+")[0])
+    want = [k for k in ec_kernels.KERNELS
+            if ec_kernels.kernel_supports(k, W, device=device)]
+    cands = line["candidates"]
+    if (line["digest_verified"] is not True or sorted(cands) != sorted(want)
+            or not all(cands[k]["kernel_gbps"] > 0 for k in want)):
+        raise AssertionError(f"bench: {line['workload']} measured "
+                             f"{sorted(cands)}, want {want} verified")
+
+
+def phase_bench(dev: torch.device, runs=None) -> list[dict]:
+    """Phase 15's bench twin (tools/bench_tpu), in this process, for each
+    of ``runs`` (bench_runs()); returns the bench lines."""
+    lines = []
+    for label, argv in runs or bench_runs():
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                out = run_quiet(f"bench_tpu {label}", bench_tpu.main,
+                                argv + ["--device", dev.type])
+        except Exception:
+            print(err.getvalue(), file=sys.stderr)
+            raise
+        line = json.loads(out.splitlines()[-1])
+        check_bench(line, dev)
+        say("bench", f"{label}: kernel " + ", ".join(
+            f"{k} {v['kernel_gbps']:.1f}" for k, v in
+            line["candidates"].items())
+            + f" GB/s (winner {line['kernel']}); staging "
+            f"{line['staging_gbps']} GB/s, e2e {line['e2e_gbps']} GB/s; "
+            f"{line['bytes_per_rep'] >> 20} MiB a rep, digests verified; "
+            f"{line['device']}, {line['power_limit']}")
+        lines.append(line)
+    return lines
+
+
+def phase_sweep(device: str, only: str = "headline_1M_b64") -> dict:
+    """One bench_sweep row through its subprocess path; returns the
+    row's state entry."""
+    t0 = time.perf_counter()
+    out = run_quiet("bench_sweep", bench_sweep.main,
+                    ["--only", only, "--device", device, "--retries", "0"])
+    with open(bench_sweep.STATE[device]) as f:
+        entry = json.load(f)[only]
+    res = entry.get("result", {})
+    if res.get("digest_verified") is not True:
+        raise AssertionError(f"bench_sweep {only}: {entry}")
+    say("bench", f"bench_sweep --only {only}: kernel {res['kernel']} "
+                 f"{res['kernel_gbps']} GB/s, e2e {res['e2e_gbps']} GB/s, "
+                 f"{time.perf_counter() - t0:.1f} s with the child's start; "
+                 f"{out}")
+    return entry
 
 
 def profile_totals() -> dict[str, list]:
@@ -1718,19 +1871,19 @@ def main() -> int:
     kernels, times = phase_kernels(dev, rng, clock_hz)
     sched_row = phase_sched_xor(dev, rng)
     crc_row = phase_crc(dev)
-    t_main = time.perf_counter()
+    t_main, since = time.perf_counter(), time.time()
     counts = main_path(dev, rng)
     profile_line(time.perf_counter() - t_main)
-    check_main_path(counts)
+    check_main_path(counts, since=since)
     check_race_picks(times, np.random.default_rng(SEED))
     for realization, row in kernels.items():
         row["launches"] = counts[KERNELS[realization][1]]
     before = profile_totals()
-    t_bits = time.perf_counter()
+    t_bits, since = time.perf_counter(), time.time()
     bit_counts, host_applies = bit_path(dev, rng)
     profile_line(time.perf_counter() - t_bits, before, "bit path",
                  "copies to the card, the numpy codec's checks")
-    check_main_path(bit_counts, (SCHED_KERNEL[1],))
+    check_main_path(bit_counts, (SCHED_KERNEL[1],), since, "bit path")
     if host_applies:
         raise AssertionError(f"{host_applies} bit-path applies of the "
                              f"{OBJECT_SIZE >> 20} MiB objects stayed on "
@@ -1738,19 +1891,28 @@ def main() -> int:
     sched_row["launches"] = bit_counts[SCHED_KERNEL[1]]
     before = profile_totals()
     csum_before = csum_launches()
-    t_write = time.perf_counter()
+    t_write, since = time.perf_counter(), time.time()
     write_counts, write_result = write_path(dev, rng, **WRITE)
     profile_line(time.perf_counter() - t_write, before, "write path",
                  "data generation, staging, the oracle and crc checks")
     check_write_path(write_counts, write_result, csum_before)
+    check_picks(picks_since(since), write_counts, "write path")
     crc_row["launches"] = write_counts[CRC_KERNEL[1]]
     before = profile_totals()
-    t_wide = time.perf_counter()
+    t_wide, since = time.perf_counter(), time.time()
     wide_counts, wide_result = wide_path(dev, rng, **WIDE)
     profile_line(time.perf_counter() - t_wide, before, "wide path",
                  "data generation, CLAY's coupling on the host, the numpy "
                  "codecs' checks")
-    check_wide_path(wide_counts, wide_result)
+    check_wide_path(wide_counts, wide_result, since)
+    say("launches", "gf_bitmm launches: main path "
+                    f"{counts['gf_bitmm']}, write path "
+                    f"{write_counts['gf_bitmm']}, wide path "
+                    f"{wide_counts['gf_bitmm']}")
+    t_bench = time.perf_counter()
+    phase_bench(dev)
+    phase_sweep(dev.type)
+    say("bench", f"phase 15: {time.perf_counter() - t_bench:.1f} s")
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

@@ -1,0 +1,87 @@
+"""The port's sweep tool (tools/bench_sweep.py): its BASELINE rows are
+the reference's, and its state file is written atomically, with a stub
+child in place of a real bench."""
+
+import json
+import os
+import sys
+
+from ceph_tpu.tools import bench_sweep as ref_sweep
+from ceph_tpu_torch.tools import bench_sweep
+
+
+def test_rows_are_the_references_baseline_rows():
+    """Ids and arguments as the reference's configs(), its ``jax``
+    backend as ``torch``, its bench_root rows left out."""
+    want = [{"id": c["id"].replace("_jax", "_torch"), "tool": c["tool"],
+             "argv": [a.replace("backend=jax", "backend=torch")
+                      for a in c["argv"]]}
+            for c in ref_sweep.configs() if c["tool"] != "bench_root"]
+    assert bench_sweep.configs() == want
+    assert {c["tool"] for c in want} == set(bench_sweep.TOOLS)
+
+
+def test_command_passes_the_device():
+    cfg = bench_sweep.configs()[0]
+    cmd = bench_sweep.command(cfg, "cuda")
+    assert cmd[:3] == [sys.executable, "-m",
+                       "ceph_tpu_torch.tools.bench_tpu"]
+    assert cmd[3:-2] == cfg["argv"] and cmd[-2:] == ["--device", "cuda"]
+
+
+def test_state_files_lie_in_the_build_directory():
+    build = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "ceph_tpu_torch", "build")
+    for path in bench_sweep.STATE.values():
+        assert os.path.dirname(path) == build
+
+
+def test_state_is_written_atomically_and_resumes(tmp_path, monkeypatch,
+                                                 capsys):
+    paths = {"cuda": str(tmp_path / "sweep.json"),
+             "cpu": str(tmp_path / "sweep_cpu.json")}
+    monkeypatch.setattr(bench_sweep, "STATE", paths)
+    seen = []
+
+    def stub(cfg, device):
+        seen.append((cfg["id"], device))
+        if cfg["id"] == "cauchy_k8m4_1M":
+            return [sys.executable, "-c", "import sys; sys.exit(3)"]
+        return [sys.executable, "-c",
+                f"print('noise'); print('{{\"id\": \"{cfg['id']}\"}}')"]
+
+    monkeypatch.setattr(bench_sweep, "command", stub)
+    replaced = []
+    real_replace = os.replace
+
+    def spy(src, dst):
+        assert src == dst + ".tmp"
+        json.load(open(src))  # whole before it takes the name
+        replaced.append(dst)
+        real_replace(src, dst)
+
+    monkeypatch.setattr(os, "replace", spy)
+    assert bench_sweep.main(["--device", "cpu", "--only",
+                             "headline_1M_b64", "--retries", "0"]) == 0
+    assert seen == [("headline_1M_b64", "cpu")]
+    assert replaced == [paths["cpu"]]
+    assert not os.path.exists(paths["cpu"] + ".tmp")
+    state = json.load(open(paths["cpu"]))
+    assert state["headline_1M_b64"]["result"]["id"] == "headline_1M_b64"
+    assert state["headline_1M_b64"]["attempts"] == 1
+
+    # a resumed run skips the measured row, retries a failing one and
+    # keeps the rest
+    seen.clear()
+    assert bench_sweep.main(["--device", "cpu", "--retries", "1"]) == 1
+    n = len(bench_sweep.configs())
+    assert len(seen) == n - 1 + 1  # every other row once, one retried
+    assert ("headline_1M_b64", "cpu") not in seen
+    state = json.load(open(paths["cpu"]))
+    assert len(state) == n
+    assert state["cauchy_k8m4_1M"]["error"].startswith("rc=3")
+    assert state["cauchy_k8m4_1M"]["attempts"] == 2
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["skipped"] == 1 and summary["failed"] == 1
+    assert summary["measured_total"] == n - 1
+    assert not os.path.exists(paths["cuda"])

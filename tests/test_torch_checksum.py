@@ -404,7 +404,7 @@ def test_native_binding_matches_reference_binding():
         jax_native.crc32c_blocks(data, 4096)
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas", "bitxor"])
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "bitxor", "mxu"])
 def test_region_out_writes_the_callers_rows(kernel):
     """RegionMatmul(..., out=) fills rows k..k+m of the caller's
     (k + m, L) buffer, whose first k rows are the data, and returns it —

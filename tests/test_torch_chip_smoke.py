@@ -17,6 +17,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from ceph_tpu_torch.ops import ec_kernels  # noqa: E402
 
 # small CPU tensors: one thread, so the suite's parallel workers do not
 # oversubscribe the cores
@@ -72,6 +73,81 @@ def test_bounds_count_the_main_matrix():
         2 * 4 * 9 * 8 + 25 * general + 4 * ones + 2 * 64
 
 
+def test_g4_row_has_its_source_and_the_functions_bound():
+    """G4 (mxu, gf_bitmm) is a region kernel of phase 3 with its own
+    source, and its bound is the function's: at the 3x8 encode on
+    (8, 8 MiB) the same 88 MiB as K1's, 0.0275 ms at 3.35 TB/s."""
+    name, ctr, plain_of, site = chip_smoke.KERNELS["mxu"]
+    assert (name, ctr, site) == ("gf_bitmm", "gf_bitmm",
+                                 "ceph_tpu/ops/ec_kernels.py:348")
+    assert plain_of is ec_kernels.gf_matmul_mxu_graph
+    assert chip_smoke.KERNEL_SOURCES["mxu"] == \
+        "ceph_tpu_torch/csrc/gf_bitmm.cu"
+    assert os.path.exists(os.path.join(chip_smoke.REPO,
+                                       chip_smoke.KERNEL_SOURCES["mxu"]))
+    M = chip_smoke.smoke_matrices(np.random.default_rng(0))[
+        chip_smoke.TIMED_SHAPES[0]]
+    ms, by = chip_smoke.bound(M, chip_smoke.MAIN_L)
+    assert by == "bytes" and 0.0275 < ms < 0.02755
+    # every smoke matrix has 32 columns or fewer: phase 3 runs G4 on all
+    assert all(m.shape[1] <= 32 for m in
+               chip_smoke.smoke_matrices(np.random.default_rng(0)).values())
+
+
+def test_check_picks_allows_only_mxu_on_wide_matrices(capsys):
+    """The one skip a pick may book is mxu on a matrix wider than 32
+    columns, printed by signature; any other skip fails, and so does a
+    path that raced a narrow matrix without launching G4."""
+    counts = {"gf_bitmm": 3}
+    ok = {"pick/3x8/m1/L512": {"mode": "auto", "skipped": []},
+          "pick/2x40/m2/L512": {"mode": "auto", "skipped": ["mxu"]}}
+    chip_smoke.check_picks(ok, counts, "test path")
+    assert "pick/2x40/m2/L512" in capsys.readouterr().out
+    assert chip_smoke.pick_cols("pick/2x40/m2/L512") == 40
+    for bad in ({"pick/3x32/m3/L512": {"mode": "auto",
+                                        "skipped": ["mxu"]}},
+                {"pick/2x40/m2/L512": {"mode": "auto",
+                                        "skipped": ["mxu", "bitxor"]}},
+                {"pick/2x40/m2/L512": {"mode": "pinned",
+                                        "skipped": ["nope"]}}):
+        with pytest.raises(AssertionError, match="skipped"):
+            chip_smoke.check_picks(bad, counts, "test path")
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_picks(ok, {"gf_bitmm": 0}, "test path")
+    # a path with no race of a narrow matrix needs no G4 launch
+    chip_smoke.check_picks({"pick/3x8/m1/L512": {"mode": "pinned",
+                                                 "skipped": []}},
+                           {"gf_bitmm": 0}, "test path")
+
+
+def test_bench_runs_are_baselines_headline():
+    runs = dict(chip_smoke.bench_runs())
+    assert list(runs) == ["encode 4 KiB", "encode 64 KiB", "encode 1024 KiB",
+                          "encode 4096 KiB", "decode 1024 KiB",
+                          "encode+csum 1024 KiB"]
+    for label, argv in runs.items():
+        assert argv[:4] == ["--k", "8", "--m", "3"]
+        stripe = int(argv[argv.index("--stripe-bytes") + 1])
+        batch = int(argv[argv.index("--batch") + 1])
+        assert batch == max(1, min(64, (64 << 20) // stripe))
+
+
+def test_bench_phase_rehearsal_on_cpu(capsys):
+    """Phase 15 at a small size on the CPU: every viable candidate (the
+    plain versions, xla among them) measured with its digest verified."""
+    small = ["--k", "8", "--m", "3", "--reps", "1", "--stripe-bytes",
+             "4096", "--batch", "2"]
+    lines = chip_smoke.phase_bench(torch.device("cpu"), [
+        ("encode 4 KiB", small), ("encode+csum 4 KiB", small + ["--csum"])])
+    out = capsys.readouterr().out
+    assert out.count("[bench]") == 2 and "digests verified" in out
+    for line in lines:
+        assert set(line["candidates"]) == {"xla", "pallas", "bitxor", "mxu"}
+    bad = dict(lines[0], candidates={"pallas": {"kernel_gbps": 1.0}})
+    with pytest.raises(AssertionError, match="measured"):
+        chip_smoke.check_bench(bad, torch.device("cpu"))
+
+
 def test_oracle_columns_sample_every_pass():
     """Short rows are checked whole; long ones in evenly spread windows
     that reach the row's end, so every grid-stride pass is sampled."""
@@ -99,8 +175,13 @@ def test_race_picks_must_follow_phase_3(monkeypatch):
     times = {"pallas": {"reed_sol_van 3x8": 0.043,
                         "decode 8x8 {1,4,9}": 0.067},
              "bitxor": {"reed_sol_van 3x8": 0.057,
-                        "decode 8x8 {1,4,9}": 0.083}}
+                        "decode 8x8 {1,4,9}": 0.083},
+             "mxu": {"reed_sol_van 3x8": 0.064,
+                     "decode 8x8 {1,4,9}": 0.121}}
     with pytest.raises(AssertionError, match="pinned bitxor"):
+        chip_smoke.check_race_picks(times, rng)
+    picks[sig]["picked"] = "mxu"
+    with pytest.raises(AssertionError, match="pinned mxu"):
         chip_smoke.check_race_picks(times, rng)
     picks[sig]["picked"] = "pallas"
     chip_smoke.check_race_picks(times, rng)
@@ -182,8 +263,8 @@ def test_counted_sweeps_sees_a_host_sweep():
 
 
 def _passing_write():
-    counts = {"gf_bitterm": 40, "gf_bitxor": 8, "gf_sched_xor": 0,
-              "crc32c_chunks": 30, "plain": 0}
+    counts = {"gf_bitterm": 40, "gf_bitxor": 8, "gf_bitmm": 8,
+              "gf_sched_xor": 0, "crc32c_chunks": 30, "plain": 0}
     result = {"encode": {"launches": 30}, "decode": {"launches": 25},
               "sweeps": 0, "d2h_encode": 30, "d2h_decode": 25,
               "csum_launches": 30,
@@ -203,7 +284,7 @@ def test_write_path_check_refuses_each_fault(fault):
     counts, result = _passing_write()
     chip_smoke.check_write_path(counts, result)
     if fault == "no region kernel":
-        counts["gf_bitterm"] = counts["gf_bitxor"] = 0
+        counts["gf_bitterm"] = counts["gf_bitxor"] = counts["gf_bitmm"] = 0
     elif fault == "plain ran":
         counts["plain"] = 1
     elif fault == "host sweep":
@@ -273,8 +354,8 @@ def test_corpus_grids_split_the_fifteen_directories():
 
 
 def _passing_wide():
-    counts = {"gf_bitterm": 900, "gf_bitxor": 700, "gf_sched_xor": 0,
-              "crc32c_chunks": 32, "plain": 0}
+    counts = {"gf_bitterm": 900, "gf_bitxor": 700, "gf_bitmm": 400,
+              "gf_sched_xor": 0, "crc32c_chunks": 32, "plain": 0}
     result = {"shec": {"fused": 30, "k": 8, "narrow_rows": [6, 6, 6]},
               "folds": {"shec encode": [30, 64, 4],
                         "shec decode": [35, 128, 8],
@@ -288,10 +369,15 @@ def _passing_wide():
                                    "skipped pick", "not narrow",
                                    "no narrow fold", "no G1",
                                    "unfused flush", "sub-chunk alone",
-                                   "repair alone"])
+                                   "repair alone", "no G4",
+                                   "mxu skipped on a narrow matrix"])
 def test_wide_path_check_refuses_each_fault(fault, monkeypatch):
     picks = {"pick/8x8/m00000000/L131072": {"picked": "pallas",
-                                             "skipped": []}}
+                                             "mode": "auto", "at": 0.0,
+                                             "skipped": []},
+             "pick/8x40/m00000001/L131072": {"picked": "pallas",
+                                             "mode": "auto", "at": 0.0,
+                                             "skipped": ["mxu"]}}
     monkeypatch.setattr(chip_smoke, "kernel_profiler",
                         lambda: types.SimpleNamespace(picks=lambda: picks))
     counts, result = _passing_wide()
@@ -301,7 +387,11 @@ def test_wide_path_check_refuses_each_fault(fault, monkeypatch):
     if fault == "plain ran":
         counts["plain"] = 1
     elif fault == "no region kernel":
-        counts["gf_bitterm"] = 0
+        counts["gf_bitterm"] = counts["gf_bitmm"] = 0
+    elif fault == "no G4":
+        counts["gf_bitmm"] = 0
+    elif fault == "mxu skipped on a narrow matrix":
+        picks["pick/8x8/m00000000/L131072"]["skipped"] = ["mxu"]
     elif fault == "skipped pick":
         picks["pick/8x8/m00000000/L131072"]["skipped"] = ["bitxor"]
     elif fault == "not narrow":

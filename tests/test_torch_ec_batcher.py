@@ -20,6 +20,7 @@ from ceph_tpu_torch import ec
 from ceph_tpu_torch.ec import batcher as batcher_mod
 from ceph_tpu_torch.ec.batcher import (ECBatcher, FLUSH_IDLE, FLUSH_SIZE,
                                        FLUSH_WINDOW, bucket_len)
+from ceph_tpu_torch.ec.matrix_code import KERNEL_RACE_ORDER
 from ceph_tpu_torch.ops import gf256, native
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.perf import kernel_profiler
@@ -325,7 +326,7 @@ def test_fused_flush_races_an_unpinned_signature():
         assert np.array_equal(csums, _oracle_csums(data, parity))
     picks = codec.kernel_picks()
     assert len(picks) == 1
-    assert list(picks.values())[0] in ("pallas", "bitxor")
+    assert list(picks.values())[0] in KERNEL_RACE_ORDER
 
 
 def test_one_device_copy_per_flush():

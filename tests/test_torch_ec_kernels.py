@@ -86,7 +86,7 @@ def test_plain_forms_match_jax_interpret(kernel, name):
 
 
 @pytest.mark.parametrize("c", [1, 2, 3, 5, 8, 12, 16, 24, 32])
-@pytest.mark.parametrize("kernel", ["xla", "pallas", "bitxor"])
+@pytest.mark.parametrize("kernel", ["xla", "pallas", "bitxor", "mxu"])
 def test_realizations_match_oracle_c_1_to_32(c, kernel):
     """Random and sparse matrices, c from 1 to 32, numpy and tensor
     inputs: every CPU realization equals the oracle (exact)."""
@@ -176,14 +176,16 @@ def test_kernel_supports_answers():
         assert K.kernel_supports(k, M, device=CPU)
         assert K.kernel_supports(k, M, (8, 100), device=CPU)
         assert not K.kernel_supports(k, M, (7, 100), device=CPU)
-    assert not K.kernel_supports("mxu", M, device=CPU)
-    assert not K.kernel_supports("mxu", M, device="cuda")
+    wide = ref_gf.vandermonde_matrix(40, 2)  # c = 40 > 32
+    assert K.kernel_supports("mxu", M, device=CPU)
+    assert not K.kernel_supports("mxu", wide, device=CPU)
+    assert not K.kernel_supports("mxu", wide, device="cuda")
     assert not K.kernel_supports("xla", M, device="cuda")
     assert not K.kernel_supports("nope", M, device=CPU)
     assert not K.kernel_supports("xla", np.zeros((0, 3)), device=CPU)
     assert K.KERNELS == ref_k.KERNELS
     with pytest.raises(ValueError):
-        K.RegionMatmul(M, kernel="mxu", device=CPU)
+        K.RegionMatmul(wide, kernel="mxu", device=CPU)
     with pytest.raises(ValueError):
         K.RegionMatmul(M, kernel="bogus", device=CPU)
 

@@ -110,6 +110,26 @@ def test_wide_code_modules_import_alone():
     assert out.stdout.strip() == "clay lrc shec"
 
 
+#: the bench tools, imported one by one in a fresh interpreter by
+#: test_tool_modules_import_alone
+TOOL_MODULES = ("ceph_tpu_torch.tools.bench_tpu",
+                "ceph_tpu_torch.tools.bench_sweep",
+                "ceph_tpu_torch.tools.ec_benchmark",
+                "ceph_tpu_torch.tools.ec_non_regression")
+
+
+def test_tool_modules_import_alone():
+    """Importing each of the port's tools, one after another in a fresh
+    interpreter, loads neither jax nor ceph_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *TOOL_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
 def _sources():
     for root, _dirs, files in os.walk(PKG):
         for f in files:

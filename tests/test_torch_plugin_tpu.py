@@ -18,6 +18,7 @@ from ceph_tpu import ec as ref_ec
 from ceph_tpu_torch import ec
 from ceph_tpu_torch.ec.convert import codec_from_reference
 from ceph_tpu_torch.ops import ec_kernels, gf256
+from ceph_tpu_torch.utils.perf import kernel_profiler
 
 # small CPU tensors: one thread, so the suite's parallel workers do not
 # oversubscribe the cores
@@ -148,7 +149,7 @@ def test_kernel_picks_pinned_to_xla_on_cpu():
     assert after["gf_bitterm"] == before["gf_bitterm"]
 
 
-@pytest.mark.parametrize("kernel", ["pallas", "bitxor"])
+@pytest.mark.parametrize("kernel", ["pallas", "bitxor", "mxu"])
 def test_pinned_and_raced_kernels_on_cpu(kernel):
     """A ``kernel`` pin, and a forced race over the hand-written
     candidates' plain versions, give the same bytes."""
@@ -164,16 +165,22 @@ def test_pinned_and_raced_kernels_on_cpu(kernel):
         for i in want:
             assert np.array_equal(got[i], want[i])
     assert set(pinned.kernel_picks().values()) == {kernel}
-    assert set(raced.kernel_picks().values()) <= {"pallas", "bitxor"}
+    assert set(raced.kernel_picks().values()) <= {"pallas", "bitxor", "mxu"}
 
 
 @pytest.mark.parametrize("times, winner", [
     # the lower median picks pallas (5 < 6) where the mean would not
-    ({"pallas": [1e-3, 30e-3, 5e-3], "bitxor": [6e-3, 6e-3, 6e-3]},
+    ({"pallas": [1e-3, 30e-3, 5e-3], "bitxor": [6e-3, 6e-3, 6e-3],
+      "mxu": [9e-3, 9e-3, 9e-3]},
      "pallas"),
     # and bitxor (7 < 8) where the least time would not
-    ({"pallas": [1e-3, 8e-3, 9e-3], "bitxor": [7e-3, 7e-3, 7e-3]},
+    ({"pallas": [1e-3, 8e-3, 9e-3], "bitxor": [7e-3, 7e-3, 7e-3],
+      "mxu": [2e-3, 10e-3, 10e-3]},
      "bitxor"),
+    # and mxu (4 < 5 < 6) where the greatest time would not
+    ({"pallas": [5e-3, 5e-3, 5e-3], "bitxor": [6e-3, 6e-3, 6e-3],
+      "mxu": [4e-3, 4e-3, 20e-3]},
+     "mxu"),
 ])
 def test_race_pins_the_lower_median(monkeypatch, times, winner):
     """A forced race on the CPU, with the launch timer stubbed to give
@@ -181,7 +188,6 @@ def test_race_pins_the_lower_median(monkeypatch, times, winner):
     RACE_TIMED_LAUNCHES = 3 times timed, the lower median of the three
     decides the pin, 4 launches a candidate are booked, and the output
     is the JAX ``tpu`` plugin's bytes."""
-    from ceph_tpu_torch.utils.perf import kernel_profiler
 
     codec = ec.factory("tpu", {"k": "8", "m": "3", "device": "cpu",
                                "kernel_race": "on"})
@@ -206,8 +212,8 @@ def test_race_pins_the_lower_median(monkeypatch, times, winner):
     obj = RNG.integers(0, 256, 8 * 512, dtype=np.uint8).tobytes()
     before = ec_kernels.launch_counts()["plain"]
     got = codec.encode(obj)
-    assert ec_kernels.launch_counts()["plain"] - before == 8
-    assert booked == [(winner, 8)]
+    assert ec_kernels.launch_counts()["plain"] - before == 12
+    assert booked == [(winner, 12)]
     assert all(next(it, None) is None for it in fed.values())
     assert set(codec.kernel_picks().values()) == {winner}
     want = ref_ec.factory("tpu", {"k": "8", "m": "3",
@@ -217,11 +223,13 @@ def test_race_pins_the_lower_median(monkeypatch, times, winner):
 
 
 def test_unsupported_pin_books_a_skip():
-    codec = ec.factory("tpu", {"k": "8", "m": "3", "device": "cpu",
+    codec = ec.factory("tpu", {"k": "40", "m": "2", "device": "cpu",
                                "kernel": "mxu"})
-    obj = RNG.integers(0, 256, 8 * 512, dtype=np.uint8).tobytes()
+    obj = RNG.integers(0, 256, 40 * 512, dtype=np.uint8).tobytes()
     codec.encode(obj)
     assert set(codec.kernel_picks().values()) == {"xla"}
+    sig, = codec.kernel_picks()
+    assert kernel_profiler().picks()[sig]["skipped"] == ["mxu"]
 
 
 def test_corpus_chunks_reproduced():

@@ -33,7 +33,8 @@ def test_unknown_technique_raises():
 
 
 @pytest.mark.parametrize("k,m", [(8, 3), (4, 2)])
-@pytest.mark.parametrize("kernel", ["auto", "xla", "pallas", "bitxor"])
+@pytest.mark.parametrize("kernel", ["auto", "xla", "pallas", "bitxor",
+                                    "mxu"])
 def test_encode_graph_equal(k, m, kernel):
     port, ref = StripeCodec(k, m), RefCodec(k, m)
     assert np.array_equal(port.full, ref.full)
