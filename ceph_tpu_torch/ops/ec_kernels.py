@@ -113,7 +113,7 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
       flags, 33 bytes a coefficient, to fit a block's shared memory,
       ``bitxor`` needs the (8c + 1) bit-planes of a
       BITXOR_MIN_THREADS-thread block to fit it, and ``mxu`` its
-      fragment table, 256 bytes an output row.
+      fragment table, bitmm_table_bytes.
     """
     if kernel not in KERNELS:
         return False
@@ -134,7 +134,7 @@ def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,
     if kernel == "pallas":
         return M.shape[0] * M.shape[1] * 33 <= smem
     if kernel == "mxu":
-        return M.shape[0] * BITMM_ROW_BYTES <= smem
+        return bitmm_table_bytes(*M.shape) <= smem
     return (8 * M.shape[1] + 1) * 4 * BITXOR_MIN_THREADS <= smem
 
 
@@ -467,40 +467,83 @@ def gf_region_graph(M: np.ndarray, kernel: str = "xla"):
 # mxu: the GF(2) bit-matrix product on the binary tensor cores (G4)
 # ---------------------------------------------------------------------------
 
-#: bytes of gf_bitmm's fragment table a block stages per output row
-BITMM_ROW_BYTES = 256
+#: bytes of gf_bitmm's fragment table for each group of 4 output rows:
+#: 2 registers of 32 lanes for c <= 8 (one byte a bit pair), 8 above
+BITMM_GROUP_BYTES = 256
+BITMM_COLUMN_GROUP_BYTES = 1024
 #: columns the plain version of G4 unpacks at a time: its float32 planes
 #: take 32 c bytes a column, so this bounds them to 2 GiB at c = 32
 _MXU_PLAIN_COLS = 1 << 21
 
 
+def bitmm_table_bytes(r: int, c: int) -> int:
+    """Bytes of gf_bitmm's fragment table for an r x c matrix, which a
+    block stages in shared memory: ceil(r / 4) groups of 4 output rows."""
+    per = BITMM_GROUP_BYTES if c <= 8 else BITMM_COLUMN_GROUP_BYTES
+    return per * -(-r // 4)
+
+
 @dataclass(frozen=True)
 class BitmmPlan:
     """A GF(2^8) matrix M (r, c) lowered for the gf_bitmm kernel: the B
-    fragments of mma.m16n8k256.b1 (csrc/gf2_mma.cuh) for each output row.
+    fragments of mma.m16n8k256.b1 (csrc/gf2_mma.cuh) for each group G of
+    output rows 4 G .. 4 G + 3, where B column n = 2 rho + v of the
+    product for bit pair p is bitmatrix row 8 (4 G + rho) + 2 p + v.
 
-    ``frag[i, h, 4 n + t]`` is register b_h of lane (n, t) for output row
-    i: bit 8 e + s of it is B[8 i + n, 8 (16 h + 4 t + e) + s], with
-    B = gf256.bitmatrix(M) zero-padded to 256 columns.  The kernel's A
-    fragments hold byte e of input row 16 h + 4 t + e at the same bits,
-    so each mma pairs the two by k = 8 j + s.  (r, 2, 32) uint32."""
+    - c <= 8 (gf_bitmm_words): ``frag[G, h, 4 n + t]`` holds in its byte
+      p the bits s of bitmatrix(M)[8 (4 G + rho) + 2 p + v,
+      8 (4 h + t) + s]; the kernel moves byte p to byte u for the product
+      of byte column u (a block-diagonal B: its A words hold input row
+      4 h + t at byte u).  (ceil(r / 4), 2, 32) uint32.
+    - c > 8 (gf_bitmm_columns): ``frag[G, p, h, 4 n + t]``, bit 8 e + s
+      of it bitmatrix(M)[8 (4 G + rho) + 2 p + v, 8 (16 h + 4 t + e) + s]
+      (its A registers hold input row 16 h + 4 t + e at byte e of one
+      column).  (ceil(r / 4), 4, 2, 32) uint32.
+
+    Zero past r rows and c columns."""
 
     frag: np.ndarray
     rows: int
     cols: int
 
 
+def _bitmm_rows(M: np.ndarray, width: int) -> np.ndarray:
+    """bitmatrix(M) zero-padded to whole groups of 4 output rows (32 bit
+    rows) and ``width`` bit columns, uint64."""
+    r, c = M.shape
+    B = np.zeros((32 * -(-r // 4), width), dtype=np.uint64)
+    B[:8 * r, :8 * c] = gf256.bitmatrix(M)
+    return B
+
+
+def _bitmm_word_frag(M: np.ndarray) -> np.ndarray:
+    """gf_bitmm_words' table of M (c <= 8): see BitmmPlan."""
+    groups = -(-M.shape[0] // 4)
+    B = _bitmm_rows(M, 64)
+    # [G, rho, p, v, h, t, s] -> byte [G, rho, p, v, h, t]
+    byte = (B.reshape(groups, 4, 4, 2, 2, 4, 8)
+            << np.arange(8, dtype=np.uint64)).sum(-1)
+    word = (byte << (8 * np.arange(4, dtype=np.uint64))[:, None, None, None]
+            ).sum(2)  # [G, rho, v, h, t]
+    return word.transpose(0, 3, 1, 2, 4).reshape(groups, 2, 32)
+
+
+def _bitmm_column_frag(M: np.ndarray) -> np.ndarray:
+    """gf_bitmm_columns' table of M (c <= 32): see BitmmPlan."""
+    groups = -(-M.shape[0] // 4)
+    B = _bitmm_rows(M, 256)
+    # [G, rho, p, v, h, t, 8 e + s] -> word [G, rho, p, v, h, t]
+    word = (B.reshape(groups, 4, 4, 2, 2, 4, 32)
+            << np.arange(32, dtype=np.uint64)).sum(-1)
+    return word.transpose(0, 2, 4, 1, 3, 5).reshape(groups, 4, 2, 32)
+
+
 @functools.lru_cache(maxsize=128)
 def _cached_bitmm_plan(key: bytes, shape: tuple[int, int]) -> BitmmPlan:
     M = np.frombuffer(key, dtype=np.uint8).reshape(shape)
-    r, c = shape
-    B = np.zeros((8 * r, 256), dtype=np.uint64)
-    B[:, :8 * c] = gf256.bitmatrix(M)
-    # [i, n, h, t, beta] -> word [i, h, 4 n + t]
-    words = (B.reshape(r, 8, 2, 4, 32) << np.arange(32, dtype=np.uint64)
-             ).sum(-1)
-    frag = words.transpose(0, 2, 1, 3).reshape(r, 2, 32).astype(np.uint32)
-    return BitmmPlan(frag=np.ascontiguousarray(frag), rows=r, cols=c)
+    frag = _bitmm_word_frag(M) if shape[1] <= 8 else _bitmm_column_frag(M)
+    return BitmmPlan(frag=np.ascontiguousarray(frag.astype(np.uint32)),
+                     rows=shape[0], cols=shape[1])
 
 
 def bitmm_plan(M: np.ndarray) -> BitmmPlan:

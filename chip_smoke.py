@@ -16,9 +16,13 @@ in order, one line each:
              on the card (torch.equal) and against the numpy oracle, over
              the listed matrices and lengths, K3 in plane-row and in packet
              mode; CUDA-event times at the main shapes (K1, K2 and G4 at
-             the 3x8 encode and the 8x8 decode, with K1's instruction
-             floor and G4's library yardstick torch._int_mm), with K3's
-             yardstick (a device copy of the same bytes).
+             the 3x8 encode and the 8x8 decode, with K1's and G4's
+             instruction floors and G4's library yardstick torch._int_mm),
+             with K3's yardstick (a device copy of the same bytes).  G4
+             also takes BITMM_CASES through its wrapper: all-0xFF data at
+             c = 32 with sums of 256, r = 1 and r = 16, c = 11 on one half
+             of K, ragged last tiles; its ptxas lines are printed here
+             (the phase fails if a build ran and they are missing).
 4. crc     — G1, the CRC32C kernel, against its plain version and the
              native library's crc32c at chunk lengths from 4 bytes to
              1 MiB + 4 on 1 to 704 rows, all-zero and all-0xFF chunks
@@ -131,6 +135,9 @@ INT8_OPS_PER_S = 1979e12
 #: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 #: throughput)
 INT32_PER_CLK_SM = 64
+#: warp-instructions an SM dispatches per clock, whatever their pipe: one
+#: for each of its 4 schedulers (NVIDIA H100 architecture white paper)
+DISPATCH_PER_CLK_SM = 4
 
 KERNELS = {
     # realization -> (kernel name, launch counter, plain version, TPU site)
@@ -308,6 +315,123 @@ def bitterm_floor_ms(M: np.ndarray, L: int, sms: int, clock_hz: float
                                                * clock_hz)
 
 
+#: gf_bitmm's instructions a warp issues for one 256-column tile of its
+#: word kernel (c <= 8), as its SASS (sm_90a) shows them, on the ALU pipe,
+#: on the FMA pipe and in all (BMMA, loads, stores and NOPs too): in the
+#: loop over groups of 4 output rows, per group, 64 BMMA, 182 IMAD (the
+#: sums paired, the Horner steps), 190 on the ALU (96 PRMT, 68 LOP3, 26
+#: others) and 472 in all (23 NOP among them); around that loop, once a
+#: tile (the loads' addresses and the prefetch), 33 IMAD, 25 on the ALU
+#: and 84 in all
+BITMM_GROUP_ALU_OPS = 190
+BITMM_GROUP_FMA_OPS = 182
+BITMM_GROUP_OPS = 472
+BITMM_TILE_ALU_OPS = 25
+BITMM_TILE_FMA_OPS = 33
+BITMM_TILE_OPS = 84
+#: columns of every row one warp of gf_bitmm takes at once (kTileBytes)
+BITMM_TILE_BYTES = 256
+
+
+def bitmm_mix(M: np.ndarray) -> tuple[int, int, int]:
+    """gf_bitmm's (ALU, FMA-pipe, all) instructions a warp issues per
+    256-column tile of an (r, c <= 8) matrix (its word kernel), from the
+    BITMM_*_OPS counts: the group loop once per group of 4 output rows,
+    then the tile's own."""
+    r, c = np.asarray(M).shape
+    if c > 8:
+        raise ValueError("the BITMM_*_OPS counts are the word kernel's: "
+                         "c <= 8")
+    groups = -(-r // 4)
+    return (BITMM_GROUP_ALU_OPS * groups + BITMM_TILE_ALU_OPS,
+            BITMM_GROUP_FMA_OPS * groups + BITMM_TILE_FMA_OPS,
+            BITMM_GROUP_OPS * groups + BITMM_TILE_OPS)
+
+
+def bitmm_floor_ms(M: np.ndarray, L: int, sms: int, clock_hz: float
+                   ) -> float:
+    """The least time of gf_bitmm's own instruction mix on (c, L) bytes:
+    for each of the ceil(L / 256) tiles, the larger of two SM-clock counts
+    from bitmm_mix, the busier pipe's instructions at INT32_PER_CLK_SM / 32
+    warp-instructions a clock (the ALU's rate, and the FMA pipe's for
+    32-bit integer multiply-adds on compute capability 9.0) and all of
+    them at DISPATCH_PER_CLK_SM."""
+    alu, fma, total = bitmm_mix(M)
+    clocks = max(32 * max(alu, fma) / INT32_PER_CLK_SM,
+                 total / DISPATCH_PER_CLK_SM)
+    tiles = -(-L // BITMM_TILE_BYTES)
+    return 1e3 * tiles * clocks / (sms * clock_hz)
+
+
+#: G4's own phase-3 cases beside the smoke matrices, through its wrapper
+#: at lengths that no padding rounds (L % 16 == 0; all but one end in a
+#: ragged 256-column tile): (label, rows, columns, length, fill); the
+#: "full" rows make every bit-column count in bitmatrix rows 0 and 15,
+#: so all-0xFF data at c = 32 sums to 256 there, whose low byte is 0
+BITMM_CASES = (
+    ("all-0xFF, full rows 2x32", "full", 32, (1 << 20) + 16, 0xFF),
+    ("random 1x8, ragged", 1, 8, 100_000, None),
+    ("random 2x11, ragged", 2, 11, 100_000, None),
+    ("random 1x17, ragged", 1, 17, 65_552, None),
+    ("random 16x8", 16, 8, MAIN_L, None),
+    ("random 16x32, ragged", 16, 32, 100_000, None),
+    ("random 3x8, ragged", 3, 8, MAIN_L + 16, None),
+)
+
+
+def full_row_element(k: int) -> int:
+    """The GF(2^8) element whose bitmatrix row k is all ones."""
+    for a in range(1, 256):
+        if gf256.bitmatrix(np.array([[a]], dtype=np.uint8))[k].all():
+            return a
+    raise AssertionError(f"no GF(2^8) element has bitmatrix row {k} full")
+
+
+def bitmm_case_matrix(rows, cols: int, rng: np.random.Generator
+                      ) -> np.ndarray:
+    if rows == "full":
+        return np.array([[full_row_element(0)] * cols,
+                         [full_row_element(7)] * cols], dtype=np.uint8)
+    return rng.integers(0, 256, (rows, cols), dtype=np.uint8)
+
+
+def check_bitmm_cases(dev: torch.device, gen: torch.Generator,
+                      rng: np.random.Generator, cases=BITMM_CASES
+                      ) -> tuple[int, int]:
+    """G4 through gf_bitmm_lanes on each of ``cases`` against its plain
+    version (equal bytes, all columns) and the numpy oracle
+    (oracle_columns).  Returns (cases, max abs err)."""
+    err = 0
+    for label, rows, cols, L, fill in cases:
+        M = bitmm_case_matrix(rows, cols, rng)
+        plan = ec_kernels.bitmm_plan(M)
+        frag = torch.from_numpy(plan.frag.view(np.int32)).to(dev)
+        data = (torch.randint(0, 256, (cols, L), dtype=torch.uint8,
+                              device=dev, generator=gen) if fill is None
+                else torch.full((cols, L), fill, dtype=torch.uint8,
+                                device=dev))
+        got = ec_kernels.gf_bitmm_lanes(
+            data.view(torch.int32), gf256.bitmatrix(M),
+            (frag, plan)).view(torch.uint8)
+        want = ec_kernels.gf_matmul_mxu_graph(M)(data)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        diff = int((got.int() - want.int()).abs().max())
+        err = max(err, diff)
+        if not torch.equal(got, want):
+            raise AssertionError(f"gf_bitmm {label} L={L}: differs from "
+                                 f"its plain version (max abs err {diff})")
+        idx = torch.from_numpy(oracle_columns(L)).to(dev)
+        oracle = gf256.encode_region(M, data[:, idx].cpu().numpy())
+        if not np.array_equal(got[:, idx].cpu().numpy(), oracle):
+            raise AssertionError(f"gf_bitmm {label} L={L}: differs from "
+                                 "the oracle")
+    say("kernels", f"gf_bitmm: {len(cases)} more cases equal to the plain "
+                   "version and the oracle through its wrapper: "
+                   + "; ".join(f"{c[0]} L={c[3]}" for c in cases))
+    return len(cases), err
+
+
 def cuda_ms(fn, n: int, warm: int = 3) -> float:
     """Median CUDA-event time (ms) of ``n`` back-to-back launches.  The
     card first sleeps for about 50 ms while the host queues every
@@ -432,6 +556,12 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
                     raise AssertionError(
                         f"{name} {label} L={L}: differs from the oracle")
                 cases += 1
+        if realization == "mxu":
+            for ln in bitmm_ptxas_lines():
+                say("kernels", f"{name} ptxas: {ln}")
+            more, more_err = check_bitmm_cases(dev, gen, rng)
+            cases += more
+            err = max(err, more_err)
         say("kernels", f"{name}: {cases} cases equal to the plain version "
                        "and the oracle")
         times = {}
@@ -453,6 +583,18 @@ def phase_kernels(dev: torch.device, rng: np.random.Generator,
                            f"{t_bytes:.4f}, operations {t_ops:.4f}), "
                            f"{ms / bound_ms:.2f}x the bound; after timing: "
                            f"{clocks}")
+            if realization == "mxu":
+                floor = bitmm_floor_ms(
+                    M, main_l, torch.cuda.get_device_properties(
+                        dev).multi_processor_count, clock_hz)
+                alu, fma, total = bitmm_mix(M)
+                say("kernels", f"{name}: {label}: its own instruction mix "
+                               f"({alu} ALU, {fma} FMA-pipe and {total} in "
+                               f"all a warp per {BITMM_TILE_BYTES}-column "
+                               "tile) "
+                               f"needs at least {floor:.4f} ms at the top "
+                               f"clock (bitmm_floor_ms), {ms / floor:.2f}x "
+                               "of it")
             if realization == "pallas":
                 floor = bitterm_floor_ms(
                     M, main_l, torch.cuda.get_device_properties(
@@ -517,6 +659,19 @@ def ptxas_lines(kernel: str) -> list[str]:
         if keep and any(w in ln for w in ("registers", "spill", "entry")):
             out.append(ln.strip())
     return out
+
+
+def bitmm_ptxas_lines() -> list[str]:
+    """G4's ptxas lines (ptxas_lines of its kernels).  Raises if this
+    process ran a build whose log lacks the word or the column kernel, so
+    that a renamed kernel cannot empty the print."""
+    lines = ptxas_lines("gf_bitmm_")
+    missing = [k for k in ("gf_bitmm_words", "gf_bitmm_columns")
+               if not any(k in ln for ln in lines)]
+    if cuda_lib.BUILD_LOG.get("ptxas") and missing:
+        raise AssertionError(f"gf_bitmm: the build's ptxas log has no entry "
+                             f"for {missing}")
+    return lines
 
 
 def phase_crc(dev: torch.device,

@@ -6,10 +6,10 @@ launches the binary tensor-core kernel gf_bitmm.  The plain version and
 RegionMatmul(kernel="mxu") are held against the JAX package's
 gf_matmul_mxu_graph (jitted on the CPU) and RegionMatmul(kernel="mxu"),
 and the kernel's host half — bitmm_plan's fragment table — with the
-kernel's loads, byte-permute transpose, AND-popcount products, packing
-and quad reduce-scatter is replayed by an emulator on numpy uint32
-words, lane by lane.  All comparisons are integer: tolerance 0
-(byte-exact).
+kernel's loads, fragment byte permutes, AND-popcount products, sums
+paired by shift-adds, low-byte gathers and Horner steps is replayed by
+an emulator on numpy uint32 words, lane by lane.  All comparisons are
+integer: tolerance 0 (byte-exact).
 """
 
 import numpy as np
@@ -119,6 +119,7 @@ def test_fused_encode_csum_graph_takes_mxu():
 
 _LANE = np.arange(32)
 _G, _T = _LANE >> 2, _LANE & 3
+_U32 = np.uint64(0xFFFFFFFF)
 
 
 def _byte_perm(a, b, s: int) -> np.ndarray:
@@ -132,17 +133,13 @@ def _byte_perm(a, b, s: int) -> np.ndarray:
         sel = (s >> (4 * n)) & 7
         out |= ((both >> np.uint64(8 * sel)) & np.uint64(0xFF)) \
             << np.uint64(8 * n)
-    return out.astype(np.uint32)
+    return out
 
 
-def _transpose4(a0, a1, a2, a3) -> list:
-    """gf_bitmm.cu transpose4: byte e of word u = byte u of a_e."""
-    t0 = _byte_perm(a0, a1, 0x5140)
-    t1 = _byte_perm(a0, a1, 0x7362)
-    t2 = _byte_perm(a2, a3, 0x5140)
-    t3 = _byte_perm(a2, a3, 0x7362)
-    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
-            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+def _place_sel(u: int, p: int) -> int:
+    """gf_bitmm.cu place_sel: byte p of a register to byte u, zeros
+    elsewhere."""
+    return (0x4444 & ~(0xF << (4 * u))) | (p << (4 * u))
 
 
 def _bits(regs) -> np.ndarray:
@@ -152,8 +149,8 @@ def _bits(regs) -> np.ndarray:
             ).astype(np.int64)
 
 
-def _mma_b1(a: list, b0, b1) -> list:
-    """mma.m16n8k256.b1 and.popc from zero, in the layout of
+def _mma_b1(acc: list, a: list, b0, b1) -> list:
+    """mma.m16n8k256.b1 and.popc onto ``acc``, in the layout of
     gf2_mma.cuh: a[i] of lane (g, t) is A row g + 8 (i % 2) at k =
     128 (i // 2) + 32 t + beta; b_h of lane (n, t) is B column n at k =
     128 h + 32 t + beta.  Returns d[0..3] of each lane."""
@@ -167,104 +164,245 @@ def _mma_b1(a: list, b0, b1) -> list:
         B[(128 * h + 32 * _T)[:, None] + np.arange(32), _G[:, None]] = \
             _bits(regs)
     D = A @ B
-    return [D[_G, 2 * _T], D[_G, 2 * _T + 1], D[_G + 8, 2 * _T],
-            D[_G + 8, 2 * _T + 1]]
+    return [acc[0] + D[_G, 2 * _T], acc[1] + D[_G, 2 * _T + 1],
+            acc[2] + D[_G + 8, 2 * _T], acc[3] + D[_G + 8, 2 * _T + 1]]
 
 
-def _shfl_xor(v, m: int) -> np.ndarray:
-    return np.asarray(v)[_LANE ^ m]
+def _transpose4(a0, a1, a2, a3) -> list:
+    """gf_bitmm.cu transpose4: byte e of word u = byte u of a_e."""
+    t0 = _byte_perm(a0, a1, 0x5140)
+    t1 = _byte_perm(a0, a1, 0x7362)
+    t2 = _byte_perm(a2, a3, 0x5140)
+    t3 = _byte_perm(a2, a3, 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
 
 
-def _reduce_scatter(w: list) -> np.ndarray:
-    """gf_bitmm.cu quad_reduce_scatter: lane t gets word t of the OR of
-    its quad's four w[0..3]."""
-    hi = (_T & 2) != 0
-    k0 = np.where(hi, w[2], w[0])
-    k1 = np.where(hi, w[3], w[1])
-    k0 = k0 | _shfl_xor(np.where(hi, w[0], w[2]), 2)
-    k1 = k1 | _shfl_xor(np.where(hi, w[1], w[3]), 2)
-    odd = (_T & 1) != 0
-    return np.where(odd, k1, k0) | _shfl_xor(np.where(odd, k0, k1), 1)
+def _place_pair(lo_out, hi_out, d: list):
+    """gf_bitmm.cu place_pair: bits 2p + 1, then 2p, of four products'
+    sums d[u] onto lo (d[u][0..1]) and hi (d[u][2..3]) by pairing, a
+    low-byte gather, a mask and a Horner step."""
+    out = [lo_out, hi_out]
+    for v in (1, 0):
+        for h in range(2):
+            i = 2 * h + v
+            lo = (d[0][i] + d[1][i] * np.uint64(1 << 16)) & _U32
+            hi = (d[2][i] + d[3][i] * np.uint64(1 << 16)) & _U32
+            bits = _byte_perm(lo, hi, 0x6420) & np.uint64(0x01010101)
+            out[h] = (out[h] * np.uint64(2) + bits) & _U32
+    return out
 
 
-def _emulate_gf_bitmm(M: np.ndarray, x: np.ndarray) -> np.ndarray:
+def _products(sums: list, a: list, b0, b1) -> list:
+    """One mma from zero, its sums kept for the test: (32,) uint64 d[0..3]
+    of each lane."""
+    zero = np.zeros(32, dtype=np.int64)
+    d = _mma_b1([zero] * 4, a, b0, b1)
+    sums.append(max(int(x.max()) for x in d))
+    return [x.astype(np.uint64) for x in d]
+
+
+def _group_words(a: np.ndarray, fr: np.ndarray, sums: list) -> np.ndarray:
+    """gf_bitmm.cu group_words: out[h, w] of every lane from the tile's A
+    words a[i, w] and the group's packed B registers fr[h]."""
+    out = np.zeros((2, 4, 32), dtype=np.uint64)
+    for p in (3, 2, 1, 0):
+        b = [[_byte_perm(fr[h], 0, _place_sel(u, p)) for u in range(4)]
+             for h in range(2)]
+        for w in range(4):
+            av = [a[i, w] for i in range(4)]
+            d = [_products(sums, av, b[0][u], b[1][u]) for u in range(4)]
+            out[0, w], out[1, w] = _place_pair(out[0, w], out[1, w], d)
+    return out
+
+
+def _group_columns(cw: list, fr: np.ndarray, sums: list) -> np.ndarray:
+    """gf_bitmm.cu group_columns: out[q] of every lane from the tile's
+    column words cw[h][q][u] and the group's B registers fr[p, h]; with
+    one half of K (c <= 16) the product is m16n8k128, the k256 one with
+    the upper half zero."""
+    zero = np.zeros(32, dtype=np.uint64)
+    out = np.zeros((4, 32), dtype=np.uint64)
+    for p in (3, 2, 1, 0):
+        for q in range(2):
+            d = []
+            for u in range(4):
+                upper = ([cw[1][q][u], cw[1][q + 2][u], fr[p, 1]]
+                         if len(cw) == 2 else [zero, zero, zero])
+                d.append(_products(sums, [cw[0][q][u], cw[0][q + 2][u]]
+                                   + upper[:2], fr[p, 0], upper[2]))
+            out[q], out[q + 2] = _place_pair(out[q], out[q + 2], d)
+    return out
+
+
+def _emulate_gf_bitmm(M: np.ndarray, x: np.ndarray,
+                      sums: list | None = None) -> np.ndarray:
     """gf_bitmm's loops for one warp over every tile of (c, L) bytes x
-    (L % 16 == 0), from bitmm_plan's table."""
+    (L % 16 == 0), from bitmm_plan's table: for c <= 8 gf_bitmm_words
+    (load_words, group_words, two uint4 stores a group on 256 columns),
+    above gf_bitmm_columns (load_rows, transpose4, group_columns, one
+    uint4 store a group on 128 columns)."""
     plan = K.bitmm_plan(M)
     r, c = M.shape
     L = x.shape[1]
+    sums = [] if sums is None else sums
     words = x.view("<u4")  # (c, L / 4)
     y = np.zeros((r, L // 4), dtype=np.uint32)
-    for tile in range(-(-L // 128)):
-        col = tile * 128 + 16 * _G
-        live = col < L
-        cw = [[None] * 4 for _ in range(2)]
-        for h in range(2):
-            w = np.zeros((4, 4, 32), dtype=np.uint32)  # [e][q][lane]
-            for e in range(4):
-                j = 16 * h + 4 * _T + e
-                ok = live & (j < c)
-                for q in range(4):
-                    w[e, q, ok] = words[j[ok], col[ok] // 4 + q]
-            for q in range(4):
-                cw[h][q] = _transpose4(w[0, q], w[1, q], w[2, q], w[3, q])
-        for i in range(r):
-            b0, b1 = plan.frag[i, 0], plan.frag[i, 1]
-            out = [np.zeros(32, dtype=np.uint32) for _ in range(4)]
-            for q in range(2):
-                for u in range(4):
-                    d = _mma_b1([cw[0][q][u], cw[0][q + 2][u], cw[1][q][u],
-                                 cw[1][q + 2][u]], b0, b1)
-                    sh = (8 * u + 2 * _T).astype(np.uint32)
-                    out[q] |= (((d[0] & 1) | ((d[1] & 1) << 1))
-                               .astype(np.uint32) << sh)
-                    out[q + 2] |= (((d[2] & 1) | ((d[3] & 1) << 1))
-                                   .astype(np.uint32) << sh)
-            word = _reduce_scatter(out)
-            y[i, (col[live] + 4 * _T[live]) // 4] = word[live]
+
+    def load(j, at):
+        v = np.zeros((4, 32), dtype=np.uint64)  # [word, lane]
+        ok = (j < c) & (at < L)
+        for q in range(4):
+            v[q, ok] = words[j[ok], at[ok] // 4 + q]
+        return v
+
+    def store(row, at, out):  # out (4, 32): a uint4 a lane
+        ok = (row < r) & (at < L)
+        for q in range(4):
+            y[row[ok], at[ok] // 4 + q] = out[q, ok]
+
+    if c <= 8:
+        for tile in range(-(-L // 256)):
+            col = tile * 256 + 16 * _G
+            a = np.stack([load(4 * (i >> 1) + _T, col + 128 * (i & 1))
+                          for i in range(4)])  # [i, w, lane]
+            for G in range(plan.frag.shape[0]):
+                out = _group_words(a, plan.frag[G], sums)
+                for h in range(2):
+                    store(4 * G + _T, col + 128 * h, out[h])
+    else:
+        halves = 1 if c <= 16 else 2
+        for tile in range(-(-L // 128)):
+            col = tile * 128 + 16 * _G
+            cw = []
+            for h in range(halves):
+                w = [load(16 * h + 4 * _T + e, col) for e in range(4)]
+                cw.append([_transpose4(w[0][q], w[1][q], w[2][q], w[3][q])
+                           for q in range(4)])
+            for G in range(plan.frag.shape[0]):
+                store(4 * G + _T, col,
+                      _group_columns(cw, plan.frag[G], sums))
     return y.view(np.uint8)
 
 
-def test_fragment_table_is_the_bitmatrix():
-    """bitmm_plan: bit 8e + s of register h of lane (n, t) for output row
-    i is bitmatrix(M)[8i + n, 8(16h + 4t + e) + s], zero past 8c."""
-    M = np.random.default_rng(5).integers(0, 256, (3, 11), dtype=np.uint8)
+@pytest.mark.parametrize("shape", [(3, 8), (8, 5), (3, 11), (16, 32),
+                                   (1, 1)])
+def test_fragment_table_is_the_bitmatrix(shape):
+    """bitmm_plan, with rho, v = n // 2, n % 2 for lane (n, t): for
+    c <= 8 bit s of byte p of register h is bitmatrix(M)[8 (4 G + rho) +
+    2 p + v, 8 (4 h + t) + s]; above, bit 8 e + s of register (p, h) is
+    bitmatrix(M)[8 (4 G + rho) + 2 p + v, 8 (16 h + 4 t + e) + s]; zero
+    past r rows and c columns."""
+    r, c = shape
+    M = np.random.default_rng(5).integers(0, 256, shape, dtype=np.uint8)
     plan = K.bitmm_plan(M)
-    assert plan.frag.shape == (3, 2, 32) and plan.frag.dtype == np.uint32
+    groups = -(-r // 4)
+    assert plan.frag.shape == ((groups, 2, 32) if c <= 8
+                               else (groups, 4, 2, 32))
+    assert plan.frag.dtype == np.uint32
+    assert plan.frag.nbytes == K.bitmm_table_bytes(r, c)
     B = gf256.bitmatrix(M)
-    for i in range(3):
-        for h in range(2):
-            for lane in range(32):
-                n, t = lane >> 2, lane & 3
-                for beta in range(32):
-                    e, s = beta >> 3, beta & 7
-                    j = 16 * h + 4 * t + e
-                    want = int(B[8 * i + n, 8 * j + s]) if j < 11 else 0
-                    assert (int(plan.frag[i, h, lane]) >> beta) & 1 == want
+
+    def want(row8, bit, j, s):
+        return int(B[8 * row8 + bit, 8 * j + s]) if row8 < r and j < c \
+            else 0
+
+    for G in range(groups):
+        for lane in range(32):
+            n, t = lane >> 2, lane & 3
+            row8, v = 4 * G + (n >> 1), n & 1
+            for h in range(2):
+                for p in range(4):
+                    for beta in range(32):
+                        if c <= 8:
+                            if beta >> 3 != p:
+                                continue
+                            reg = plan.frag[G, h, lane]
+                            j, s = 4 * h + t, beta & 7
+                        else:
+                            reg = plan.frag[G, p, h, lane]
+                            j, s = 16 * h + 4 * t + (beta >> 3), beta & 7
+                        got = (int(reg) >> beta) & 1
+                        assert got == want(row8, 2 * p + v, j, s), \
+                            (G, lane, h, p, beta)
     with pytest.raises(ValueError):
         K.bitmm_plan(np.ones((2, 33), dtype=np.uint8))
 
 
 def test_transpose4_gathers_one_column_of_four_rows():
     rng = np.random.default_rng(6)
-    a = rng.integers(0, 2**32, (4, 32), dtype=np.uint64).astype(np.uint32)
+    a = rng.integers(0, 2**32, (4, 32), dtype=np.uint64)
     b = _transpose4(*a)
     for u in range(4):
         for e in range(4):
-            assert np.array_equal((b[u] >> np.uint32(8 * e)) & 0xFF,
-                                  (a[e] >> np.uint32(8 * u)) & 0xFF)
+            assert np.array_equal((b[u] >> np.uint64(8 * e)) & np.uint64(0xFF),
+                                  (a[e] >> np.uint64(8 * u)) & np.uint64(0xFF))
 
 
-@pytest.mark.parametrize("shape,L", [((1, 8), 16), ((3, 8), 400),
-                                     ((1, 1), 16), ((4, 32), 272),
-                                     ((2, 11), 144), ((8, 17), 128)])
-def test_kernel_emulation_equals_encode_region(shape, L):
-    """The replayed kernel gives gf256.encode_region's bytes, for r = 1,
-    c = 1 and c = 32 (a full k-step), and a ragged last tile."""
-    rng = np.random.default_rng(sum(shape) + L)
-    M = rng.integers(0, 256, shape, dtype=np.uint8)
-    x = rng.integers(0, 256, (shape[1], L), dtype=np.uint8)
-    assert np.array_equal(_emulate_gf_bitmm(M, x), gf256.encode_region(M, x))
+def test_byte_permutes_place_and_gather():
+    """place_sel moves byte p to byte u and zeroes the rest; selector
+    0x6420 gathers the low bytes of four sums packed two to a word as
+    lo + hi * 2^16, and a sum of 256 leaves an even low byte."""
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 2**32, 32, dtype=np.uint64)
+    for u in range(4):
+        for p in range(4):
+            got = _byte_perm(x, 0, _place_sel(u, p))
+            assert np.array_equal(got, ((x >> np.uint64(8 * p))
+                                        & np.uint64(0xFF))
+                                  << np.uint64(8 * u))
+    s = rng.integers(0, 257, (4, 32), dtype=np.uint64)
+    s[:, 0] = 256
+    lo = s[0] + s[1] * np.uint64(1 << 16)
+    hi = s[2] + s[3] * np.uint64(1 << 16)
+    bits = _byte_perm(lo, hi, 0x6420) & np.uint64(0x01010101)
+    for u in range(4):
+        assert np.array_equal((bits >> np.uint64(8 * u)) & np.uint64(0xFF),
+                              s[u] & np.uint64(1))
+    assert bits[0] == 0
+
+
+@pytest.mark.parametrize("r", [1, 3, 8, 16])
+@pytest.mark.parametrize("c", [1, 2, 7, 8, 9, 16, 17, 32])
+def test_kernel_emulation_equals_encode_region(c, r):
+    """The replayed kernel gives gf256.encode_region's bytes and the JAX
+    package's gf_matmul_mxu_graph's: the word kernel (c <= 8) and the
+    column kernel on one half of K (c <= 16, m16n8k128) and on both, one
+    to four groups of rows, over whole tiles and a ragged last one (16
+    columns, so most lanes load and store nothing)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(100 * c + r)
+    M = rng.integers(0, 256, (r, c), dtype=np.uint8)
+    x = rng.integers(0, 256, (c, 256 + 16), dtype=np.uint8)
+    got = _emulate_gf_bitmm(M, x)
+    want = gf256.encode_region(M, x)
+    assert np.array_equal(got, want)
+    assert np.array_equal(
+        np.asarray(ref_k.gf_matmul_mxu_graph(M)(jnp.asarray(x))), want)
+
+
+def _full_row_element(k: int) -> int:
+    """The GF(2^8) element a whose bitmatrix row k is all ones (bit k of
+    a * x^s set for every s < 8): a row of them makes every bit-column
+    count in row k's sums."""
+    for a in range(1, 256):
+        if gf256.bitmatrix(np.array([[a]], dtype=np.uint8))[k].all():
+            return a
+    raise AssertionError(f"no element for bit {k}")
+
+
+def test_a_sum_of_256_keeps_its_parity():
+    """All-0xFF data at c = 32 under a row whose bitmatrix rows are all
+    ones: one product of the column kernel sums all 256 k-bits, whose low
+    byte is 0, even, and the replay still gives encode_region's bytes."""
+    M = np.array([[_full_row_element(0)] * 32, [_full_row_element(7)] * 32],
+                 dtype=np.uint8)
+    x = np.full((32, 272), 0xFF, dtype=np.uint8)
+    sums: list = []
+    got = _emulate_gf_bitmm(M, x, sums)
+    assert max(sums) == 256
+    assert np.array_equal(got, gf256.encode_region(M, x))
 
 
 # --------------------------------------------------------------------------
@@ -286,16 +424,17 @@ def test_kernel_supports_mxu_up_to_32_columns():
 
 
 def test_kernel_supports_mxu_needs_its_table_in_shared_memory(monkeypatch):
-    """On the card ``mxu`` needs BITMM_ROW_BYTES a row of M to fit what a
-    block may opt in to."""
+    """On the card ``mxu`` needs its fragment table to fit what a block
+    may opt in to: BITMM_GROUP_BYTES a group of 4 output rows for c <= 8,
+    BITMM_COLUMN_GROUP_BYTES above."""
     from ceph_tpu_torch.ops import cuda_lib
 
     monkeypatch.setattr(cuda_lib, "smem_optin",
-                        lambda device: 4 * K.BITMM_ROW_BYTES)
-    assert K.kernel_supports("mxu", np.ones((4, 8), np.uint8),
-                             device="cuda")
-    assert not K.kernel_supports("mxu", np.ones((5, 8), np.uint8),
-                                 device="cuda")
+                        lambda device: K.BITMM_COLUMN_GROUP_BYTES)
+    for shape, ok in (((16, 8), True), ((17, 8), False), ((4, 32), True),
+                      ((5, 9), False)):
+        assert K.kernel_supports("mxu", np.ones(shape, np.uint8),
+                                 device="cuda") is ok, shape
 
 
 def test_race_order_is_the_references_less_xla():

@@ -94,6 +94,90 @@ def test_g4_row_has_its_source_and_the_functions_bound():
                chip_smoke.smoke_matrices(np.random.default_rng(0)).values())
 
 
+def test_bitmm_floor_counts_the_kernels_sass_mix():
+    """G4's own instruction floor: per 256-column tile, the group loop's
+    ALU, FMA-pipe and total counts once per group of 4 output rows and
+    the tile's own once; a tile takes the larger of the busier pipe's
+    count at 2 warp-instructions a clock per SM (64 lane-instructions)
+    and the total at the 4 schedulers' 4 a clock.  The 3x8 encode is one
+    group, the 8x8 decode two; at both the dispatch limit binds, both
+    floors sit under the byte bounds, and counts of one k-step do not
+    stand for c > 8."""
+    mats = chip_smoke.smoke_matrices(np.random.default_rng(0))
+    M = mats["reed_sol_van 3x8"]
+    assert chip_smoke.bitmm_mix(M) == (215, 215, 556)
+    floor = chip_smoke.bitmm_floor_ms(M, 8 << 20, 132, 1.98e9)
+    assert 556 / 4 > 215 / 2
+    assert floor == 1e3 * 32768 * (556 / 4) / (132 * 1.98e9)
+    assert 0.013 < floor < chip_smoke.bound(M, 8 << 20)[0]
+    D = mats["decode 8x8 {1,4,9}"]
+    assert chip_smoke.bitmm_mix(D) == (405, 397, 1028)
+    floor_d = chip_smoke.bitmm_floor_ms(D, 8 << 20, 132, 1.98e9)
+    assert floor_d == 1e3 * 32768 * (1028 / 4) / (132 * 1.98e9)
+    assert floor_d < chip_smoke.bound(D, 8 << 20)[0]
+    # the pipe limit binds where the total is small beside the busier pipe
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "BITMM_GROUP_OPS", 0)
+        mp.setattr(chip_smoke, "BITMM_TILE_OPS", 0)
+        assert chip_smoke.bitmm_floor_ms(M, 256, 1, 1.0) == \
+            1e3 * 32 * 215 / 64
+    # a ragged length counts its last tile whole
+    assert chip_smoke.bitmm_floor_ms(M, 256 + 16, 1, 1.0) == \
+        chip_smoke.bitmm_floor_ms(M, 512, 1, 1.0)
+    with pytest.raises(ValueError):
+        chip_smoke.bitmm_mix(np.ones((3, 9), np.uint8))
+
+
+def test_bitmm_ptxas_lines_need_both_kernels(monkeypatch):
+    """G4's ptxas lines come from the build this process ran; phase 3
+    fails if they lack the word or the column kernel (a rename would
+    otherwise print nothing), and prints none when no build ran."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN2g414gf_bitmm_wordsEPKhPhPKjiixx' for 'sm_90a'",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN2g416gf_bitmm_columnsILi1EEvPKhPhPKjiixx' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function 'crc32c_mma_kernel'",
+        "ptxas info    : Used 40 registers"])
+    monkeypatch.setattr(chip_smoke.cuda_lib, "BUILD_LOG", {"ptxas": log})
+    lines = chip_smoke.bitmm_ptxas_lines()
+    assert len(lines) == 4 and not any("40 registers" in ln for ln in lines)
+    renamed = log.replace("gf_bitmm_columns", "gf_bitmm_cols")
+    monkeypatch.setattr(chip_smoke.cuda_lib, "BUILD_LOG", {"ptxas": renamed})
+    with pytest.raises(AssertionError, match="gf_bitmm_columns"):
+        chip_smoke.bitmm_ptxas_lines()
+    monkeypatch.setattr(chip_smoke.cuda_lib, "BUILD_LOG", {})
+    assert chip_smoke.bitmm_ptxas_lines() == []
+
+
+def test_bitmm_cases_rehearsal_on_cpu(capsys):
+    """Phase 3's own G4 cases: full rows reach a sum of 256 at c = 32 on
+    all-0xFF data, r = 1 and r = 16 are there, every length is whole
+    16-byte groups and most end in a ragged tile; the check runs them
+    (shortened) through the wrapper's plain version on the CPU."""
+    cases = chip_smoke.BITMM_CASES
+    assert {c[1] for c in cases} >= {1, 16, "full"}
+    # both sides of the column kernel's half-K boundary, each ragged
+    assert any(8 < c[2] <= 16 and c[3] % 128 for c in cases)
+    assert any(c[2] == 17 and c[3] % 128 for c in cases)
+    assert all(c[3] % 16 == 0 for c in cases)
+    assert sum(c[3] % 256 != 0 for c in cases) >= 4
+    rng = np.random.default_rng(0)
+    full = chip_smoke.bitmm_case_matrix("full", 32, rng)
+    bits = ec_kernels.gf256.bitmatrix(full)
+    assert bits[0].sum() == bits[15].sum() == 256
+    short = tuple((label, rows, cols, min(L, 4096) + 16, fill)
+                  for label, rows, cols, L, fill in cases)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    n, err = chip_smoke.check_bitmm_cases(torch.device("cpu"), gen, rng,
+                                          short)
+    assert (n, err) == (len(cases), 0)
+    assert "all-0xFF, full rows 2x32" in capsys.readouterr().out
+
+
 def test_check_picks_allows_only_mxu_on_wide_matrices(capsys):
     """The one skip a pick may book is mxu on a matrix wider than 32
     columns, printed by signature; any other skip fails, and so does a
