@@ -19,9 +19,15 @@ Entry points run on the card unless the caller asks for the CPU
                               DeviceArena, CrcVerifier.
 - ``ceph_tpu_torch.models`` — StripeCodec: encode/decode as functions on
                               tensors.
-- ``ceph_tpu_torch.tools``  — ec_benchmark and the corpus check.
-- ``ceph_tpu_torch.utils``  — perf counters, the kernel profiler, the
-                              staging plane.
+- ``ceph_tpu_torch.tools``  — ec_benchmark, the corpus check, the bench
+                              twins, the wire-corpus checker (dencoder).
+- ``ceph_tpu_torch.utils``  — the runtime core: buffers, the versioned
+                              codec, config, logging, perf counters, the
+                              kernel profiler, the staging plane.
+- ``ceph_tpu_torch.msg``, ``auth``, ``mon``, ``qos``, ``compress``,
+  ``telemetry``, ``slo``, ``parallel`` (placement only), ``osd``
+  (scheduler, compression, intervals) — the device-free control plane:
+  messenger and wire formats, cephx, the monitor and its maps.
 """
 
 __version__ = "0.1.0"

@@ -247,6 +247,11 @@ class MatrixErasureCode(ErasureCode):
 
     #: launches a race times for each candidate after its first one
     RACE_TIMED_LAUNCHES = 3
+    #: clock cycles the card sleeps ahead of each timed race launch
+    #: (about 0.2 ms at 1.98 GHz, several times a wrapper's host work),
+    #: so the host has queued the op before the card reaches its start
+    #: event: the window then holds the kernels alone
+    RACE_LEAD_CYCLES = 400_000
 
     def _race_matmul(self, M: np.ndarray, rows):
         """First launch of an unpinned auto signature: run every viable
@@ -415,10 +420,14 @@ class MatrixErasureCode(ErasureCode):
     def _timed_launch(self, op, rows, sig: str):
         """(output, seconds) of one profiled launch, as the race times
         it: CUDA events around the op on the card, where the host clock
-        cannot see a few microseconds; the host clock on the CPU."""
+        cannot see a few microseconds, behind a sleep of
+        RACE_LEAD_CYCLES on the same stream so the window holds no host
+        work; the host clock on the CPU."""
         if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
+            with torch.cuda.device(self.device):
+                torch.cuda._sleep(self.RACE_LEAD_CYCLES)
             out = self._profiled_launch(op, rows, sig, events)
             return out, events[0].elapsed_time(events[1]) / 1e3
         t0 = time.perf_counter()

@@ -73,10 +73,25 @@ in order, one line each:
              kernel GB/s, staging and end-to-end GB/s, digests verified;
              then tools/bench_sweep --only headline_1M_b64 through its
              subprocess.
+16. cluster — the port's control plane: tools.dencoder checks
+             corpus_wire/ (52 files; the three of modules not yet ported
+             must be reported pending); three MonitorLites on a
+             LocalNetwork form a quorum; ``osd pool create`` makes a tpu
+             reed_sol_van k=8 m=3 pool at pg_num 1024 from a profile with
+             backend=torch, with no kernel launch and no card allocation
+             (the monitor checks profiles on the host); 96 OSDs of 12
+             hosts boot through MOSDBoot from a stub sender and the
+             quorum commits the map; the committed map goes to a
+             Dispatcher as an MMapPush over the TCP messenger on loopback
+             in secure mode, and the PG-mapping digest of the decoded map
+             must equal CLUSTER_DIGEST; the codec built from the pushed
+             pool as the OSD builds it (ec_backend torch) encodes an (8,
+             8 MiB) stack twice, against native.encode_region.
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
-bit-matrix path, phase 11 the write path and phases 12-14 the wide path:
-the launch counts are set to 0 before each path and read after it.
+bit-matrix path, phase 11 the write path, phases 12-14 the wide path and
+phase 16 the cluster path: the launch counts are set to 0 before each path
+and read after it.
 The region kernels must have launched on the first, the scheduled-XOR
 kernel on the second, G1 and a region kernel on the third, the plain
 versions on none, and no kernel pick may have skipped a candidate but
@@ -91,7 +106,9 @@ must have left the card in exactly one copy.  On the wide path a region
 kernel must have launched and the plain versions never, every checksummed
 SHEC encode flush must have taken the fused op, a SHEC fold of one lost
 data chunk must have read fewer than k rows, and at least one sub-chunk
-flush and one repair flush must have carried more than one op.  Then one
+flush and one repair flush must have carried more than one op.  On the
+cluster phase (its own counts) a region kernel must have launched and
+the plain versions never.  Then one
 JSON line lists every kernel, and the last line is the ``{"ok": true,
 "device": ...}`` object.  Any failure exits nonzero, and so does a
 process with no CUDA card.
@@ -100,11 +117,13 @@ process with no CUDA card.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import itertools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -117,11 +136,16 @@ from ceph_tpu_torch import ec
 from ceph_tpu_torch.ec import batcher as ec_batcher
 from ceph_tpu_torch.ec.bitmatrix_code import BitMatrixErasureCode
 from ceph_tpu_torch.ec.matrix_code import MatrixErasureCode, _shape_bucket
+from ceph_tpu_torch.mon import maps as mon_maps, monitor
+from ceph_tpu_torch.msg import messages, tcp
+from ceph_tpu_torch.msg.messenger import (Dispatcher, LocalNetwork,
+                                          Messenger, Policy)
 from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
                                 native, xor_schedule)
-from ceph_tpu_torch.tools import (bench_sweep, bench_tpu, ec_benchmark,
-                                  ec_non_regression)
+from ceph_tpu_torch.tools import (bench_sweep, bench_tpu, dencoder,
+                                  ec_benchmark, ec_non_regression)
 from ceph_tpu_torch.utils import staging
+from ceph_tpu_torch.utils.config import default_config
 from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1989,6 +2013,333 @@ def phase_sweep(device: str, only: str = "headline_1M_b64") -> dict:
     return entry
 
 
+#: phase 16: three monitors on a LocalNetwork, the tpu reed_sol_van k=8
+#: m=3 pool at pg_num 1024 (Ceph's mon_target_pg_per_osd 100 gives
+#: 96 x 100 / 11 ~ 873 PGs, rounded up to a power of two), the 96 OSDs of
+#: 12 hosts (8 each) that boot into it, and the (8, 8 MiB) encode of the
+#: codec built from the pushed map; the bound on each wait, and how often
+#: the stub boots again an OSD the leader's map lacks
+CLUSTER = dict(mons=3, osds=96, per_host=8, pg_num=1024, k=8, m=3,
+               encode_L=8 << 20, wait_s=120.0, resend_s=2.0)
+#: sha256 of pg_mapping_digest over the map the quorum commits
+#: (CLUSTER's 96 OSDs up at weight 1.0, the pool as pool 1), computed
+#: from the JAX package's OSDMap by tests/test_torch_chip_smoke.py
+CLUSTER_DIGEST = ("41410a108d8aee448430b70b72b42bc0"
+                  "fb9b724c4da57696c858679c55f539a6")
+#: the archived corpus_wire/ files whose structs wait for modules the
+#: port does not have yet (tools/dencoder.PENDING)
+DENCODER_PENDING = ("struct_ImageHeader.bin", "struct_LogEntry.bin",
+                    "struct_SnapRecord.bin")
+
+
+def cluster_profile(dev: torch.device) -> dict:
+    """Phase 16's pool profile: the tpu plugin's reed_sol_van k=8 m=3 on
+    the torch backend and ``dev``."""
+    return {"plugin": "tpu", "technique": "reed_sol_van",
+            "k": str(CLUSTER["k"]), "m": str(CLUSTER["m"]),
+            "backend": "torch", "device": dev.type}
+
+
+def pg_mapping_digest(osdmap) -> str:
+    """sha256 over the acting set (OSDMap.pg_to_up_osds) of every PG of
+    every pool of ``osdmap``, pools in id order, a hole as -1."""
+    h = hashlib.sha256()
+    for pid in sorted(osdmap.pools):
+        for seed in range(osdmap.pools[pid].pg_num):
+            acting = osdmap.pg_to_up_osds(pid, seed)
+            h.update(struct.pack(f"<ii{len(acting)}i", pid, seed, *(
+                -1 if d is None else d for d in acting)))
+    return h.hexdigest()
+
+
+def _retry_until(what: str, done, act, wait_s: float,
+                 every_s: float) -> None:
+    """``act()``, then again every ``every_s``, until ``done()``; fails
+    when ``what`` has not happened within ``wait_s``."""
+    deadline = time.monotonic() + wait_s
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cluster: {what} within {wait_s} s")
+        act()
+        step = min(deadline, time.monotonic() + every_s)
+        while not done() and time.monotonic() < step:
+            time.sleep(0.01)
+
+
+def cluster_quorum(net, *, mons: int, wait_s: float, **_) -> list:
+    """Three MonitorLites on ``net`` started; returns them once one is
+    the leader."""
+    names = [f"mon.{i}" for i in range(mons)]
+    cfg = default_config()
+    quorum = [monitor.MonitorLite(net, name, cfg=cfg, peers=names)
+              for name in names]
+    for m in quorum:
+        m.start()
+    _retry_until("a leader elected", lambda: any(m.is_leader for m in quorum),
+                 lambda: None, wait_s, wait_s)
+    return quorum
+
+
+#: the name of phase 16's pool
+CLUSTER_POOL = "ecpool"
+
+
+def _committed(mon):
+    """The OSDMap ``mon`` has committed, or None."""
+    raw = mon.store.kv.get("osdmap")
+    return None if raw is None else mon_maps.OSDMap.decode_bytes(raw)
+
+
+def _has_pool(osdmap) -> bool:
+    return osdmap is not None and any(
+        p.name == CLUSTER_POOL for p in osdmap.pools.values())
+
+
+def cluster_pool(quorum: list, dev: torch.device, *, pg_num: int,
+                 wait_s: float, resend_s: float, **_) -> dict:
+    """``osd pool create`` of the tpu pool on the leader, and again on
+    the next leader when an election drops the epoch before it commits
+    (as a client retries its command); returns the answer once every
+    monitor has committed the pool.  Fails unless each create was
+    accepted without a kernel launch or a card allocation."""
+    cmd = {"prefix": "osd pool create", "name": CLUSTER_POOL, "kind": "ec",
+           "pg_num": pg_num, "ec_profile": cluster_profile(dev)}
+    answers = []
+
+    def create() -> None:
+        leader = next((m for m in quorum if m.is_leader), None)
+        if leader is None:
+            return
+        with leader._lock:
+            if _has_pool(leader.osdmap):
+                return
+            before = ec_kernels.launch_counts()
+            mem = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+            rc, data = leader._run_command(cmd)
+        if rc != 0:
+            raise AssertionError(f"cluster: pool create refused: {rc} "
+                                 f"{data}")
+        if ec_kernels.launch_counts() != before:
+            raise AssertionError("cluster: the pool create launched "
+                                 f"kernels: {before} -> "
+                                 f"{ec_kernels.launch_counts()}")
+        if dev.type == "cuda" and torch.cuda.memory_allocated() != mem:
+            raise AssertionError("cluster: the pool create allocated on "
+                                 "the card")
+        answers.append(data)
+
+    _retry_until("the pool committed by every monitor",
+                 lambda: all(_has_pool(_committed(m)) for m in quorum),
+                 create, wait_s, resend_s)
+    return answers[-1] if answers else None
+
+
+def cluster_boot(net, quorum: list, *, osds: int, per_host: int,
+                 wait_s: float, resend_s: float, **_
+                 ) -> tuple[bytes, int]:
+    """MOSDBoot of ``osds`` OSDs (``per_host`` a host) from a stub
+    sender to the leader; returns the committed OSDMap's bytes once every
+    monitor has committed the same map with them all up, and the boots
+    sent.  As an OSD does when a pushed map leaves it out (a boot lost
+    in an election), the stub boots again, every ``resend_s``, each OSD
+    the leader's map lacks."""
+    stub = Messenger(net, "client.boot", Policy.lossless_peer())
+    stub.start()
+
+    def converged() -> bool:
+        raws = {m.store.kv.get("osdmap") for m in quorum}
+        if len(raws) != 1 or None in raws:
+            return False
+        osdmap = mon_maps.OSDMap.decode_bytes(raws.pop())
+        return len(osdmap.up_osds()) == osds and _has_pool(osdmap)
+
+    sent = 0
+
+    def boot() -> None:
+        nonlocal sent
+        leader = next((m for m in quorum if m.is_leader), None)
+        if leader is None:
+            return
+        with leader._lock:
+            up = set(leader.osdmap.up_osds())
+        for i in range(osds):
+            if i not in up:
+                stub.send_message(leader.name, messages.MOSDBoot(
+                    i, f"host{i // per_host}", f"osd.{i}"))
+                sent += 1
+
+    try:
+        _retry_until(f"{osds} OSDs up in one map committed by every "
+                     "monitor", converged, boot, wait_s, resend_s)
+    finally:
+        stub.shutdown()
+    return quorum[0].store.kv["osdmap"], sent
+
+
+class MapSink(Dispatcher):
+    """Receiver of phase 16's map push: decodes each MMapPush through
+    the maps' shared receiver state machine."""
+
+    def __init__(self):
+        self.osdmap = None
+        self.got = threading.Event()
+
+    def ms_dispatch(self, conn, msg) -> bool:
+        if not isinstance(msg, messages.MMapPush):
+            return False
+        new, _ = mon_maps.apply_map_push(self.osdmap, msg)
+        if new is not None:
+            self.osdmap = new
+            self.got.set()
+        return True
+
+
+def cluster_push(raw: bytes, epoch: int, *, wait_s: float, **_):
+    """``raw`` (an encoded OSDMap) as an MMapPush over the TCP messenger
+    on loopback in secure mode; returns the map the Dispatcher
+    decoded."""
+    net = tcp.TcpNetwork(auth_secret=os.urandom(32), secure=True)
+    tx = Messenger(net, "mon.push", Policy.lossless_peer())
+    rx = Messenger(net, "osd.push", Policy.lossless_peer())
+    sink = MapSink()
+    rx.add_dispatcher(sink)
+    try:
+        tx.start()
+        rx.start()
+        net.set_addr("osd.push", net.addr_of("osd.push"))
+        if not tx.send_message("osd.push", messages.MMapPush(epoch, raw)):
+            raise AssertionError("cluster: the map push was not sent")
+        if not sink.got.wait(wait_s):
+            raise AssertionError("cluster: no map push arrived")
+    finally:
+        tx.shutdown()
+        rx.shutdown()
+        net.stop()
+    return sink.osdmap
+
+
+def cluster_codec(osdmap, dev: torch.device, rng: np.random.Generator, *,
+                  k: int, encode_L: int, **_) -> list[float]:
+    """The pool's codec built from the pushed map as the OSD builds it
+    (osd/daemon.py _pool_codec, ec_backend torch), an encode of a (k,
+    encode_L) stack twice (the first races the kernels), each held
+    against native.encode_region; returns their times in ms (CUDA events
+    on the card, host wall on the CPU)."""
+    cfg = default_config()
+    cfg.apply_dict({"ec_backend": "torch"})
+    pool = next(p for p in osdmap.pools.values() if p.kind == "ec")
+    profile = dict(pool.ec_profile)
+    plugin = profile.pop("plugin", cfg["ec_plugin"])
+    profile.setdefault("backend", cfg["ec_backend"])
+    profile.setdefault("shard", cfg["ec_shard"])
+    profile.setdefault("kernel", cfg["ec_kernel"])
+    codec = ec.factory(plugin, profile)
+    data = rng.integers(0, 256, (k, encode_L), dtype=np.uint8)
+    want = native.encode_region(codec.matrix, data)
+    times = []
+    for _ in range(2):  # the first encode races the kernels
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            parity = codec.encode_chunks(data)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            parity = codec.encode_chunks(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(parity, want):
+            raise AssertionError("cluster: the pushed pool's encode "
+                                 "differs from native.encode_region")
+    return times
+
+
+def phase_cluster(dev: torch.device, rng: np.random.Generator,
+                  corpus: str | None = None, **over) -> dict[str, int]:
+    """Phase 16 with the launch counts set to 0 before and read after:
+    the wire corpus, the quorum and the pool, the boots and the map
+    push, the codec from the pushed map.  Returns the counts."""
+    cfg = dict(CLUSTER, **over)
+    t0 = time.perf_counter()
+    report = dencoder.check(corpus or os.path.join(REPO, "corpus_wire"))
+    if report.problems or len(report.checked) != 52 or \
+            set(report.pending) != set(DENCODER_PENDING):
+        raise AssertionError(f"cluster: wire corpus {report}")
+    say("cluster", f"wire corpus: {len(report.checked)} files checked, "
+                   "pending " + ", ".join(
+                       f"{f} ({mod})" for f, mod in
+                       sorted(report.pending.items())))
+    ec_kernels.reset_launches()
+    net = LocalNetwork()
+    t1 = time.perf_counter()
+    quorum = cluster_quorum(net, **cfg)
+    try:
+        t_quorum = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cluster_pool(quorum, dev, **cfg)
+        t_pool = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        raw, sent = cluster_boot(net, quorum, **cfg)
+        t_boot = time.perf_counter() - t1
+    finally:
+        for m in quorum:
+            m.stop()
+    epoch = mon_maps.OSDMap.decode_bytes(raw).epoch
+    t1 = time.perf_counter()
+    pushed = cluster_push(raw, epoch, **cfg)
+    t_push = time.perf_counter() - t1
+    if pushed.encode_bytes() != raw:
+        raise AssertionError("cluster: the pushed map re-encodes to other "
+                             "bytes")
+    t1 = time.perf_counter()
+    digest = pg_mapping_digest(pushed)
+    t_digest = time.perf_counter() - t1
+    if digest != CLUSTER_DIGEST:
+        raise AssertionError(f"cluster: PG-mapping digest {digest}, want "
+                             f"{CLUSTER_DIGEST}")
+    hosts = {o.host for o in pushed.osds.values()}
+    pool = next(p for p in pushed.pools.values() if p.name == CLUSTER_POOL)
+    say("cluster", f"map e{epoch}: {len(pushed.osds)} OSDs on "
+                   f"{len(hosts)} hosts, pool {pool.name} {pool.kind} "
+                   f"size {pool.size} pg_num {pool.pg_num}, "
+                   f"{len(raw)} bytes encoded; PG-mapping digest matches")
+    enc_ms = cluster_codec(pushed, dev, rng, **cfg)
+    counts = ec_kernels.launch_counts()
+    say("cluster", f"quorum {t_quorum:.3f} s, pool create {t_pool:.3f} s, "
+                   f"{cfg['osds']} boots committed {t_boot:.3f} s ({sent} "
+                   f"sent, terms {[m._term for m in quorum]}), map push "
+                   f"{t_push:.3f} s, digest {t_digest:.3f} s (host wall); "
+                   f"map {len(raw)} bytes; encode ({cfg['k']}, "
+                   f"{cfg['encode_L'] >> 10} KiB) {enc_ms[0]:.4f} ms with "
+                   f"the kernel race, {enc_ms[1]:.4f} ms after it ("
+                   f"{'CUDA events' if dev.type == 'cuda' else 'host wall'}"
+                   f"); {card(dev)}; phase "
+                   f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def card(dev: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or the
+    device type off the card."""
+    return nvidia_smi("name,power.limit") if dev.type == "cuda" \
+        else dev.type
+
+
+def check_cluster(counts: dict[str, int]) -> None:
+    """Phase 16's encode launched a region kernel (K1, K2 or G4, as
+    raced) and never a plain version."""
+    say("launches", f"cluster: {json.dumps(counts)}")
+    region = [KERNELS[r][1] for r in KERNELS]
+    if not any(counts[c] > 0 for c in region):
+        raise AssertionError(f"no region kernel ({', '.join(region)}) "
+                             "launched on the cluster phase")
+    if counts["plain"]:
+        raise AssertionError(f"a plain version ran {counts['plain']} "
+                             "times on the cluster phase")
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -2068,6 +2419,7 @@ def main() -> int:
     phase_bench(dev)
     phase_sweep(dev.type)
     say("bench", f"phase 15: {time.perf_counter() - t_bench:.1f} s")
+    check_cluster(phase_cluster(dev, np.random.default_rng(SEED)))
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

@@ -519,3 +519,79 @@ def test_recorded_flushes_sees_each_fold_kind_and_lets_go():
         ("subchunk encode", 1), ("subchunk decode", 1), ("repair", 1)]
     assert chip_smoke.fold_summary(flushes)["repair"] == [1, 1, 1]
     assert "_flush_repair" not in vars(b)
+
+
+def test_cluster_phase_rehearsal_on_cpu(capsys):
+    """Phase 16's host steps at full size with device=cpu: the wire
+    corpus (52 checked, the three pending named), three monitors in a
+    quorum, the tpu pool created from a backend=torch profile with no
+    launch, 96 boots committed, the map pushed over TCP loopback in
+    secure mode and its PG-mapping digest equal to CLUSTER_DIGEST; the
+    codec from the pushed pool encodes byte-exact on the CPU, so the
+    plain version ran, which check_cluster must refuse."""
+    counts = chip_smoke.phase_cluster(torch.device("cpu"),
+                                      np.random.default_rng(9),
+                                      encode_L=64 << 10)
+    out = capsys.readouterr().out
+    assert "52 files checked" in out
+    for name in chip_smoke.DENCODER_PENDING:
+        assert name in out
+    assert "96 OSDs on 12 hosts, pool ecpool ec size 11 pg_num 1024" in out
+    assert "PG-mapping digest matches" in out
+    assert counts["plain"] > 0
+    assert all(counts[c] == 0 for c in ("gf_bitterm", "gf_bitxor",
+                                        "gf_bitmm"))
+    with pytest.raises(AssertionError, match="no region kernel"):
+        chip_smoke.check_cluster(counts)
+    counts.update(plain=0, gf_bitmm=5)
+    chip_smoke.check_cluster(counts)
+    counts.update(plain=1)
+    with pytest.raises(AssertionError, match="plain version ran"):
+        chip_smoke.check_cluster(counts)
+
+
+def test_cluster_digest_is_the_references():
+    """CLUSTER_DIGEST is the JAX package's placement of the map the
+    port's quorum commits: the committed bytes decode in the reference,
+    re-encode unchanged, and the reference's acting sets hash to it."""
+    from ceph_tpu.mon.maps import OSDMap as RefOSDMap
+    from ceph_tpu_torch.msg.messenger import LocalNetwork
+
+    cfg = dict(chip_smoke.CLUSTER)
+    net = LocalNetwork()
+    quorum = chip_smoke.cluster_quorum(net, **cfg)
+    try:
+        chip_smoke.cluster_pool(quorum, torch.device("cpu"), **cfg)
+        raw, sent = chip_smoke.cluster_boot(net, quorum, **cfg)
+        assert sent >= 96
+    finally:
+        for m in quorum:
+            m.stop()
+    ref = RefOSDMap.decode_bytes(raw)
+    assert ref.encode_bytes() == raw
+    assert len(ref.up_osds()) == 96 and ref.pools[1].pg_num == 1024
+    assert ref.pools[1].ec_profile["backend"] == "torch"
+    assert chip_smoke.pg_mapping_digest(ref) == chip_smoke.CLUSTER_DIGEST
+
+
+def test_cluster_pool_refuses_a_create_that_launches(monkeypatch):
+    """cluster_pool fails when the monitor's check reaches a kernel
+    wrapper (here: a check codec built on the torch backend that counts
+    a launch)."""
+    from ceph_tpu_torch.mon import monitor
+    from ceph_tpu_torch.msg.messenger import LocalNetwork
+
+    real = monitor.ec.factory
+
+    def launching(plugin, profile):
+        ec_kernels._count("gf_bitmm")
+        return real(plugin, profile)
+
+    monkeypatch.setattr(monitor.ec, "factory", launching)
+    mon = monitor.MonitorLite(LocalNetwork(), "mon.0")
+    try:
+        with pytest.raises(AssertionError, match="launched kernels"):
+            chip_smoke.cluster_pool([mon], torch.device("cpu"), pg_num=8,
+                                    wait_s=60.0, resend_s=2.0)
+    finally:
+        mon.stop()

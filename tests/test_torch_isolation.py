@@ -130,6 +130,54 @@ def test_tool_modules_import_alone():
     assert out.stdout.strip() == ""
 
 
+#: the control plane's modules (runtime core, messenger, auth, QoS,
+#: telemetry, monitor, wire corpus), imported one by one in a fresh
+#: interpreter by test_control_plane_modules_import_alone
+CONTROL_PLANE_MODULES = tuple(
+    f"ceph_tpu_torch.{m}" for m in (
+        "utils", "utils.admin_socket", "utils.buffer", "utils.codec",
+        "utils.config", "utils.critical_path", "utils.event_log",
+        "utils.heartbeat_map", "utils.interval", "utils.lockdep",
+        "utils.log", "utils.mempool", "utils.metrics_history",
+        "utils.reserver", "utils.throttle", "utils.tracer",
+        "utils.tracked_op", "parallel", "parallel.placement", "ec.stripe",
+        "compress", "compress.registry", "msg", "msg.wire", "msg.messages",
+        "msg.messenger", "msg.stack", "msg.tcp", "msg.uring", "auth",
+        "auth.caps", "auth.cephx", "osd", "osd.scheduler",
+        "osd.compression", "osd.intervals", "qos", "qos.dmclock",
+        "qos.profiles", "qos.controller", "telemetry",
+        "telemetry.perf_query", "slo", "slo.objectives", "mon", "mon.maps",
+        "mon.exporter", "mon.mgr", "mon.monitor", "tools.dencoder"))
+
+
+def test_control_plane_modules_import_alone():
+    """Importing each module of the control plane, one after another in
+    a fresh interpreter, loads neither jax nor ceph_tpu; the list names
+    every module of the packages this slice added."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *CONTROL_PLANE_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    for pkg in ("auth", "compress", "mon", "msg", "osd", "parallel", "qos",
+                "slo", "telemetry"):
+        names = {f"ceph_tpu_torch.{pkg}"} | {
+            f"ceph_tpu_torch.{pkg}.{f[:-3]}"
+            for f in os.listdir(os.path.join(PKG, pkg))
+            if f.endswith(".py") and f != "__init__.py"}
+        assert names <= set(CONTROL_PLANE_MODULES), pkg
+
+
+def test_parallel_package_holds_placement_alone():
+    """The port's parallel package imports nothing of the device meshes
+    (the reference's parallel/__init__.py imports mesh and distributed,
+    which is what brings jax into its mon/maps.py)."""
+    assert sorted(f for f in os.listdir(os.path.join(PKG, "parallel"))
+                  if f.endswith(".py")) == ["__init__.py", "placement.py"]
+
+
 def _sources():
     for root, _dirs, files in os.walk(PKG):
         for f in files:
