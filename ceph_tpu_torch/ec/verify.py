@@ -20,8 +20,10 @@ Two interchangeable backends, byte-exact against each other:
 
 ``mode`` mirrors the ``osd_scrub_fold`` option: ``auto`` picks the
 kernel when a CUDA card is present and the native sweep otherwise;
-``device`` forces the torch backend on ``device`` (default ``cuda``,
-which raises without a card); ``native`` forces the host sweep.
+``device`` forces the torch backend on ``device`` (``CrcVerifier``'s
+default ``cuda`` raises without a card; ``verifier``'s default is the
+card where there is one, else the CPU); ``native`` forces the host
+sweep.
 """
 
 from __future__ import annotations
@@ -80,9 +82,14 @@ _SINGLETONS: dict[tuple, CrcVerifier] = {}
 _SINGLETON_LOCK = threading.Lock()
 
 
-def verifier(mode: str = "auto", device="cuda") -> CrcVerifier:
+def verifier(mode: str = "auto", device=None) -> CrcVerifier:
     """Process-wide verifier per (mode, device) — every OSD in a test
-    cluster shares one process."""
+    cluster shares one process.  With no ``device``, the card where
+    there is one and the CPU otherwise, so ``device`` mode runs the
+    torch path's plain version on a host without a card, as the JAX
+    package runs its device graph on the CPU there."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
     key = (mode, str(device))
     with _SINGLETON_LOCK:
         v = _SINGLETONS.get(key)

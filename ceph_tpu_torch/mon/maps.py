@@ -9,7 +9,9 @@ travels the messenger and persists in the monitor store.
 
 from __future__ import annotations
 
+import collections
 import copy
+import threading
 from dataclasses import dataclass, field
 
 from ..parallel.placement import PlacementMap, hash_combine, pg_of_object
@@ -226,19 +228,43 @@ def apply_map_push(current, msg):
     """Shared receiver state machine for MMapPush (OSDs and clients):
     returns (newmap | None, request | None) where request asks the
     caller to re-subscribe — "full" (no map yet) or "chain" (gap:
-    subscribe with have_epoch)."""
+    subscribe with have_epoch).  A receiver never mutates the map it
+    adopts, so the new map is frozen: its placements are shared."""
     if msg.map_bytes:
-        return OSDMap.decode_bytes(msg.map_bytes), None
+        return OSDMap.decode_bytes(msg.map_bytes).freeze(), None
     if current is None:
         return None, "full"
     if current.epoch == msg.base_epoch:
         inc = OSDMapIncremental.decode_bytes(msg.inc_bytes)
         m = current.deepcopy()
         m.apply_incremental(inc)
-        return m, None
+        return m.freeze(), None
     if msg.epoch > current.epoch:
         return None, "chain"
     return None, None  # stale push: nothing to do
+
+
+#: placements of frozen maps, shared by every holder of an equal map
+#: in the process (the OSDs and clients of a cluster each decode their
+#: own copy of every epoch): placement-input signature -> {(pool, seed,
+#: ignore_temp): up set}, the newest _PLACEMENT_SIGS signatures kept.
+#: The signature holds every input of pg_to_up_osds, so an entry is the
+#: value the computation gives, whichever map or test put it there.
+_PLACEMENT_SIGS = 16
+_placements: collections.OrderedDict = collections.OrderedDict()
+_placements_lock = threading.Lock()
+
+
+def _placement_table(sig: tuple) -> dict:
+    with _placements_lock:
+        table = _placements.get(sig)
+        if table is None:
+            table = _placements[sig] = {}
+            while len(_placements) > _PLACEMENT_SIGS:
+                _placements.popitem(last=False)
+        else:
+            _placements.move_to_end(sig)
+        return table
 
 
 class OSDMap(Encodable):
@@ -247,6 +273,9 @@ class OSDMap(Encodable):
     VERSION, COMPAT = 5, 1
 
     def __init__(self):
+        #: the shared placement table of a frozen map (freeze), None
+        #: while the map may still change
+        self._placed: dict | None = None
         self.epoch = 0
         self.osds: dict[int, OsdInfo] = {}
         self.pools: dict[int, PoolSpec] = {}
@@ -273,14 +302,35 @@ class OSDMap(Encodable):
         self.primary_temp: dict[tuple[int, int], int] = {}
 
     # -- mutation (monitor-side; bumps epoch through Monitor) --------------
+    def freeze(self) -> "OSDMap":
+        """Promise that this map no longer changes (a receiver's adopted
+        map): its up sets are then computed once and shared with every
+        frozen map of the same placement inputs.  The mutators below
+        thaw it; a direct field write after freeze() breaks the promise.
+        Returns the map."""
+        sig = (tuple(sorted((o.osd_id, o.up, o.in_cluster, o.weight,
+                             o.host, o.primary_affinity)
+                            for o in self.osds.values())),
+               tuple(sorted((p.pool_id, p.kind, p.size)
+                            for p in self.pools.values())),
+               tuple(sorted((k, tuple(v))
+                            for k, v in self.pg_upmap.items())),
+               tuple(sorted((k, tuple(v))
+                            for k, v in self.pg_temp.items())),
+               tuple(sorted(self.primary_temp.items())))
+        self._placed = _placement_table(sig)
+        return self
+
     def add_osd(self, osd_id: int, host: str, addr: str = "",
                 weight: float = 1.0, hb_addr: str = "") -> None:
+        self._placed = None
         self.osds[osd_id] = OsdInfo(osd_id, up=False, in_cluster=True,
                                     weight=weight, host=host, addr=addr,
                                     hb_addr=hb_addr)
 
     def mark_up(self, osd_id: int, addr: str = "",
                 hb_addr: str = "") -> None:
+        self._placed = None
         info = self.osds[osd_id]
         info.up = True
         if addr:
@@ -289,14 +339,17 @@ class OSDMap(Encodable):
             info.hb_addr = hb_addr
 
     def mark_down(self, osd_id: int) -> None:
+        self._placed = None
         if osd_id in self.osds:
             self.osds[osd_id].up = False
 
     def mark_out(self, osd_id: int) -> None:
+        self._placed = None
         if osd_id in self.osds:
             self.osds[osd_id].in_cluster = False
 
     def add_pool(self, spec: PoolSpec) -> None:
+        self._placed = None
         self.pools[spec.pool_id] = spec
         self.next_pool_id = max(self.next_pool_id, spec.pool_id + 1)
 
@@ -325,6 +378,18 @@ class OSDMap(Encodable):
         (needed to decide when a pg_temp can clear).  For EC pools,
         positions are shard ids, so a down device leaves a hole (None)
         rather than shifting shards."""
+        placed = self._placed
+        if placed is None:
+            return self._pg_to_up_osds(pool_id, pg_seed, ignore_temp)
+        at = (pool_id, pg_seed, ignore_temp)
+        up = placed.get(at)
+        if up is None:
+            up = placed[at] = tuple(
+                self._pg_to_up_osds(pool_id, pg_seed, ignore_temp))
+        return list(up)
+
+    def _pg_to_up_osds(self, pool_id: int, pg_seed: int,
+                       ignore_temp: bool) -> list[int]:
         pool = self.pools[pool_id]
         key = hash_combine("pg", pool_id, pg_seed)
         pm = self.placement()
@@ -452,6 +517,7 @@ class OSDMap(Encodable):
         if inc.base_epoch != self.epoch:
             raise ValueError(
                 f"inc base {inc.base_epoch} != epoch {self.epoch}")
+        self._placed = None
         for info in inc.osds:
             self.osds[info.osd_id] = info
         for pool in inc.pools:
@@ -482,7 +548,12 @@ class OSDMap(Encodable):
         return sorted(o.osd_id for o in self.osds.values() if o.up)
 
     def deepcopy(self) -> "OSDMap":
-        return copy.deepcopy(self)
+        """A thawed copy (the shared placement table is not copied)."""
+        placed, self._placed = self._placed, None
+        try:
+            return copy.deepcopy(self)
+        finally:
+            self._placed = placed
 
     # -- encoding ----------------------------------------------------------
     def encode(self, enc: Encoder) -> None:

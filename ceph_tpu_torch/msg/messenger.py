@@ -309,7 +309,10 @@ class Messenger:
         if self._stopped:
             return False
         throttled = False
-        if self._throttle:
+        # the cap counts clients' messages alone (an OSD's
+        # osd_client_message_cap): a peer's message has no retry, and
+        # Ceph carries peers on a cluster messenger outside that cap
+        if self._throttle and src.startswith("client."):
             if self._throttle.try_get():
                 throttled = True
             elif self.policy.lossy:

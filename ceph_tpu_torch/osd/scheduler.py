@@ -326,15 +326,16 @@ class MClockScheduler:
 
     def _enqueue_tenant_locked(self, tenant: str, item,
                                tags, now: float,
-                               trace_id=None) -> bool:
+                               trace_id=None, force: bool = False) -> bool:
         """Queue one tenant-tagged client op with arrival-time dmclock
         tags.  Returns False when the op should ride the untagged
-        stream instead (tenant table full of busy streams)."""
+        stream instead (tenant table full of busy streams).  ``force``
+        bypasses the QUEUE_CAP drop, as in ``enqueue``."""
         if not self._register_tenant_locked(tenant, now):
             self.tenant_folded += 1
             return False
         q = self._tqueues[tenant]
-        if len(q) >= self.QUEUE_CAP:
+        if len(q) >= self.QUEUE_CAP and not force:
             self.dropped[self.CLIENT] += 1
             self.tenant_dropped[tenant] = \
                 self.tenant_dropped.get(tenant, 0) + 1
@@ -467,8 +468,8 @@ class MClockScheduler:
             if klass == self.CLIENT and tenant \
                     and tenant != DEFAULT_TENANT:
                 if self._enqueue_tenant_locked(tenant, item, tags,
-                                               now,
-                                               trace_id=trace_id):
+                                               now, trace_id=trace_id,
+                                               force=force):
                     return
                 # fold-through: ride the untagged stream below
             q = self._queues[klass]

@@ -22,8 +22,8 @@ reordering/retyping existing fields is not — the check fails, which is
 the point.  After a deliberate, justified format break, regenerate
 with --create and say so in the commit.
 
-The port holds the archive the JAX package wrote.  Three of its structs
-belong to modules the port does not have yet (``PENDING``): ``check``
+The port holds the archive the JAX package wrote.  Two of its structs
+belong to a module the port does not have yet (``PENDING``): ``check``
 reports each such archived file by name with the module it waits for,
 and ``--check`` prints them, so no file is passed over silently.
 
@@ -123,7 +123,6 @@ def message_samples() -> dict:
 #: struct name -> the module of ``ceph_tpu`` its sample waits for: the
 #: archived ``struct_<name>.bin`` files the port cannot decode yet
 PENDING = {
-    "LogEntry": "osd.pglog (with osd.objectstore)",
     "SnapRecord": "services.rbd",
     "ImageHeader": "services.rbd",
 }
@@ -136,6 +135,7 @@ def struct_samples() -> dict:
     from ..auth.cephx import Ticket
     from ..mon.maps import OSDMap, OsdInfo, PoolSpec
     from ..osd.intervals import Interval, PastIntervals
+    from ..osd.pglog import LogEntry
 
     pool = PoolSpec(1, "data", "ec", 6, 5, 16,
                     {"plugin": "jerasure", "k": "4", "m": "2"},
@@ -158,6 +158,10 @@ def struct_samples() -> dict:
         "OsdInfo": (osd, OsdInfo.decode_bytes),
         "OSDMap": (omap, OSDMap.decode_bytes),
         "PastIntervals": (pi, PastIntervals.decode_bytes),
+        "LogEntry": (LogEntry(7, "write", "obj", 2, 6,
+                              rollback=[(0, b"old")], old_len=100,
+                              old_shard_len=25, epoch=4),
+                     LogEntry.decode_bytes),
         "Ticket": (Ticket("client.a", "osd", "allow rw pool=p",
                           1234567890123, 5, b"n" * 16, b"s" * 32),
                    Ticket.decode_bytes),

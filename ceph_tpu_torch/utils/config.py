@@ -161,7 +161,7 @@ OPTIONS: list[Option] = [
            "default erasure-code plugin for new pools",
            enum_values=("tpu", "jerasure", "isa", "xor", "lrc", "shec",
                         "clay")),
-    Option("ec_backend", str, "auto", OptionLevel.ADVANCED,
+    Option("ec_backend", str, "torch", OptionLevel.ADVANCED,
            "region math backend", enum_values=("auto", "native", "numpy",
                                                "torch")),
     Option("osd_pool_default_size", int, 3, OptionLevel.BASIC,

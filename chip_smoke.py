@@ -74,7 +74,7 @@ in order, one line each:
              then tools/bench_sweep --only headline_1M_b64 through its
              subprocess.
 16. cluster — the port's control plane: tools.dencoder checks
-             corpus_wire/ (52 files; the three of modules not yet ported
+             corpus_wire/ (53 files; the two of a module not yet ported
              must be reported pending); three MonitorLites on a
              LocalNetwork form a quorum; ``osd pool create`` makes a tpu
              reed_sol_van k=8 m=3 pool at pg_num 1024 from a profile with
@@ -87,11 +87,29 @@ in order, one line each:
              must equal CLUSTER_DIGEST; the codec built from the pushed
              pool as the OSD builds it (ec_backend torch) encodes an (8,
              8 MiB) stack twice, against native.encode_region.
+17. osd    — the port's cluster: a MiniCluster of 14 OSDs on 14 hosts and
+             one monitor on the default config but OSD_CONFIG
+             (ec_backend torch: every codec on the card), the tpu reed_sol_van k=8 m=3 pool at
+             pg_num 64 with the 4 KiB stripe unit; 8 client threads write
+             128 seeded objects of 4 MiB (512 MiB of data), read each back
+             twice (the second pass must find the arena: extent-cache
+             serves and arena hits), a folded deep scrub of one PG on each
+             of its OSDs, then two of its OSDs killed and marked down:
+             every object read back degraded while recovery rebuilds their
+             shards onto the spares the placement re-draws (a down OSD
+             leaves the up sets at once here, so no "osd out" is needed to
+             start it), waited for with a deadline, and a sample read
+             again.  The 14 OSDs share one process, so the phase sets
+             OSD_CONFIG over the defaults.  It fails if an op waited out
+             the op timeout or an OSD dropped a message.  It prints the
+             [osd] line: write, read and degraded-read GB/s, recovery
+             seconds, ops a launch, launches of each kernel, copies back
+             a flush, arena hits, timed-out ops and dropped messages.
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
 bit-matrix path, phase 11 the write path, phases 12-14 the wide path and
-phase 16 the cluster path: the launch counts are set to 0 before each path
-and read after it.
+phase 16 the cluster path and phase 17 the OSD path: the launch counts are
+set to 0 before each path and read after it.
 The region kernels must have launched on the first, the scheduled-XOR
 kernel on the second, G1 and a region kernel on the third, the plain
 versions on none, and no kernel pick may have skipped a candidate but
@@ -108,7 +126,12 @@ SHEC encode flush must have taken the fused op, a SHEC fold of one lost
 data chunk must have read fewer than k rows, and at least one sub-chunk
 flush and one repair flush must have carried more than one op.  On the
 cluster phase (its own counts) a region kernel must have launched and
-the plain versions never.  Then one
+the plain versions never.  On the OSD phase (its own counts) a region
+kernel and G1 must have launched and the plain versions never, every
+codec and arena must be on the card, a write must have taken the fused
+op, the second reads must have found the arena, the scrub must have
+verified the PG clean on G1 and the degraded reads must have decoded on a
+region kernel.  Then one
 JSON line lists every kernel, and the last line is the ``{"ok": true,
 "device": ...}`` object.  Any failure exits nonzero, and so does a
 process with no CUDA card.
@@ -142,8 +165,9 @@ from ceph_tpu_torch.msg.messenger import (Dispatcher, LocalNetwork,
                                           Messenger, Policy)
 from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
                                 native, xor_schedule)
+from ceph_tpu_torch.osd.objectstore import CollectionId, ObjectId
 from ceph_tpu_torch.tools import (bench_sweep, bench_tpu, dencoder,
-                                  ec_benchmark, ec_non_regression)
+                                  ec_benchmark, ec_non_regression, vstart)
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.config import default_config
 from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
@@ -2028,8 +2052,7 @@ CLUSTER_DIGEST = ("41410a108d8aee448430b70b72b42bc0"
                   "fb9b724c4da57696c858679c55f539a6")
 #: the archived corpus_wire/ files whose structs wait for modules the
 #: port does not have yet (tools/dencoder.PENDING)
-DENCODER_PENDING = ("struct_ImageHeader.bin", "struct_LogEntry.bin",
-                    "struct_SnapRecord.bin")
+DENCODER_PENDING = ("struct_ImageHeader.bin", "struct_SnapRecord.bin")
 
 
 def cluster_profile(dev: torch.device) -> dict:
@@ -2264,7 +2287,7 @@ def phase_cluster(dev: torch.device, rng: np.random.Generator,
     cfg = dict(CLUSTER, **over)
     t0 = time.perf_counter()
     report = dencoder.check(corpus or os.path.join(REPO, "corpus_wire"))
-    if report.problems or len(report.checked) != 52 or \
+    if report.problems or len(report.checked) != 53 or \
             set(report.pending) != set(DENCODER_PENDING):
         raise AssertionError(f"cluster: wire corpus {report}")
     say("cluster", f"wire corpus: {len(report.checked)} files checked, "
@@ -2338,6 +2361,351 @@ def check_cluster(counts: dict[str, int]) -> None:
     if counts["plain"]:
         raise AssertionError(f"a plain version ran {counts['plain']} "
                              "times on the cluster phase")
+
+
+#: phase 17: the port's cluster on the card, at the size of a small
+#: production EC pool: 14 OSDs, each on its own host, one monitor, local
+#: transport, the default config but OSD_CONFIG below (so the pool's
+#: codec is torch on the card), the tpu reed_sol_van k=8 m=3 pool at pg_num 64 with Ceph's
+#: 4 KiB stripe unit; 8 client threads write 128 objects of 4 MiB (the
+#: RADOS default object size: 512 MiB of data, 704 MiB stored), read
+#: each back twice, deep-scrub one PG, lose two OSDs, read everything
+#: degraded and recover onto the spares.  ``wait_s`` bounds each wait,
+#: ``sample`` is how many objects are read back after recovery.  Not
+#: cut: the phase takes 25-45 s on the card, past the 30 s aimed at at
+#: times; most of it is the 14 OSDs' host work under one interpreter
+#: lock after the loss (peering, and the rebuild's decodes with their
+#: kernel races), and the run stays far inside its limit.
+OSD_PHASE = dict(osds=14, pg_num=64, k=8, m=3, objects=128,
+                 object_size=OBJECT_SIZE, threads=8, lost=2, sample=16,
+                 wait_s=240.0)
+OSD_POOL = "ecpool"
+#: the options phase 17 sets over the default config, for 14 OSDs, a
+#: monitor and 8 clients that share one process and so one interpreter
+#: lock (each seen on an H100 host):
+#: - osd_scrub_auto off (default on): the background scrub scheduler's
+#:   heartbeat tick placed every PG of its OSD in Python, and at 64 PGs
+#:   the OSDs starved their own heartbeats until the monitor marked
+#:   every OSD down (both packages, within seconds of the pool's
+#:   creation; since then a receiver's map places each PG once, see
+#:   mon/maps.py OSDMap.freeze), so the phase runs its one scrub cycle
+#:   itself;
+#: - osd_heartbeat_grace 60 s (default 3): under the writes a heartbeat
+#:   reply can wait on the lock past 3 s, so OSDs flap down and up and
+#:   shards land on stand-ins; the phase marks its lost OSDs down itself;
+#: - osd_op_timeout 20 s (default 5): at 5 s the rebuild's shard reads
+#:   time out and are sent again, hundreds of them, and runs fail
+#:   (experiments/osd_trace.py --defaults); at 20 s none timed out, the
+#:   oldest op pending 5-15 s.  The phase fails if any op waits out the
+#:   20 s.
+OSD_CONFIG = {"osd_scrub_auto": False, "osd_heartbeat_grace": 60.0,
+              "osd_op_timeout": 20.0}
+
+
+def osd_profile(dev: torch.device, *, k: int, m: int, **_) -> dict:
+    """Phase 17's pool: tpu reed_sol_van with no backend and no device,
+    so the OSDs build its codec as their config says (torch on the
+    card); off the card (the CPU rehearsal) it asks for the CPU."""
+    prof = {"plugin": "tpu", "technique": "reed_sol_van", "k": str(k),
+            "m": str(m)}
+    if dev.type != "cuda":
+        prof["device"] = dev.type
+    return prof
+
+
+def osd_counters(cluster) -> dict:
+    """The counters phase 17 reads before and after each step: launches
+    of every kernel (and plain version), fused encode+CRC launches, the
+    staging plane's copies back, the arena's hits, and the reads the
+    OSDs served from their extent caches."""
+    out = ec_kernels.launch_counts()
+    out["fused"] = csum_launches()
+    pc = staging.stage_perf()
+    for name in ("ec_arena_hits", "ec_stage_d2h_copies"):
+        # the arena's counters appear with the first arena
+        out[name] = pc.get(name) if pc.has(name) else 0
+    out["cache_served"] = sum(o.perf.get("ec_read_cache_hit")
+                              for o in cluster.osds.values())
+    return out
+
+
+def osd_faults(osds: list) -> dict:
+    """Over the phase's OSDs (the lost ones too): ops the osd_op_timeout
+    sweep failed, and messages dropped by their messengers' throttles
+    and their op queues' caps."""
+    return {"op_timeouts": sum(o.perf.get("op_timeouts") for o in osds),
+            "dropped": sum(o.messenger.perf.get("msg_drop_backpressure")
+                           + sum(o.scheduler.dropped.values())
+                           for o in osds)}
+
+
+def counter_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+@contextlib.contextmanager
+def osd_flushes(cluster, flushes: list):
+    """Within the block, every flush of every OSD's batcher appends
+    (fold kind, signature, ops it carried)."""
+    with contextlib.ExitStack() as stack:
+        for osd in list(cluster.osds.values()):
+            stack.enter_context(recorded_flushes(osd._ec_batcher, flushes))
+        yield
+
+
+def osd_codecs_on(cluster, dev: torch.device) -> int:
+    """Every codec the OSDs built is on the torch backend on ``dev``, and
+    so is every arena; returns how many codecs there are."""
+    codecs = [c for o in cluster.osds.values() for c in o._ec_codecs.values()]
+    wrong = [(c._backend, c.device) for c in codecs
+             if c._backend != "torch" or c.device.type != dev.type]
+    wrong += [("arena", a.device) for o in cluster.osds.values()
+              for a in o._ec_cache._arenas.values()
+              if a.device.type != dev.type]
+    if not codecs or wrong:
+        raise AssertionError(f"osd: codecs off the {dev.type}: {wrong}")
+    return len(codecs)
+
+
+def osd_peered(cluster, wait_s: float) -> None:
+    """Wait until every PG has peered (its primary heard from each
+    member), failing with the PGs still waiting and on whom."""
+    def pending():
+        return {i: {pg: set(w) for pg, w in list(o._peering.items())}
+                for i, o in list(cluster.osds.items()) if o._peering}
+
+    deadline = time.monotonic() + wait_s
+    while (now := pending()):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"osd: peering not within {wait_s} s: "
+                                 f"{now}")
+        time.sleep(0.05)
+
+
+def osd_rebuilt(cluster, pool_id: int, lost: list) -> bool:
+    """Each lost (object, shard) lies on the OSD the map now puts that
+    shard on."""
+    omap = cluster.mon.osdmap
+    for name, shard in lost:
+        seed = omap.object_to_pg(pool_id, name)
+        osd = cluster.osds.get(omap.pg_to_up_osds(pool_id, seed)[shard])
+        if osd is None or not osd.store.exists(CollectionId(pool_id, seed),
+                                               ObjectId(name, shard=shard)):
+            return False
+    return True
+
+
+def osd_scrub_pg(cluster, pool_id: int, seed: int) -> dict:
+    """One folded deep-scrub cycle of PG ``seed`` on each OSD of its up
+    set, chunk after chunk on this thread (the background scheduler's
+    cycle, run to its end): returns the OSDs' summed scrub counters."""
+    pgid = messages.PgId(pool_id, seed)
+    tot = {"objects": 0, "bytes": 0, "mismatches": 0, "launches": 0}
+    for osd_id in cluster.mon.osdmap.pg_to_up_osds(pool_id, seed):
+        osd = cluster.osds[osd_id]
+        launches = osd.perf.get("scrub_verify_launches")
+        st = {"due": 0.0, "running": True, "objects": 0, "bytes": 0,
+              "mismatches": 0, "started": time.time(), "total": 0}
+        while not osd._scrub_auto_run_chunk(pgid, st):
+            pass
+        for key in ("objects", "bytes", "mismatches"):
+            tot[key] += st[key]
+        tot["launches"] += osd.perf.get("scrub_verify_launches") - launches
+    return tot
+
+
+def phase_osd(dev: torch.device, rng: np.random.Generator,
+              **over) -> tuple[dict[str, int], dict]:
+    """Phase 17 with the launch counts set to 0 before and read after:
+    the writes, two reads of every object, a deep scrub of one PG, the
+    degraded reads with two OSDs lost and the recovery onto the spares,
+    all through a MiniCluster of the port's OSDs and RadosClients.  The
+    degraded reads run while recovery rebuilds.  Returns the counts and
+    the phase's numbers."""
+    cfg = dict(OSD_PHASE, **over)
+    k, m, n, size = cfg["k"], cfg["m"], cfg["objects"], cfg["object_size"]
+    threads = cfg["threads"]
+    per = n // threads
+    if per * threads != n:
+        raise ValueError("objects must be a multiple of threads")
+    t0 = time.perf_counter()
+    conf = default_config()
+    if conf["ec_backend"] != "torch":
+        raise AssertionError(f"osd: the default ec_backend is "
+                             f"{conf['ec_backend']}, not torch")
+    conf.apply_dict(OSD_CONFIG)
+    raw = rng.bytes(n * size)
+    payloads = [raw[i * size:(i + 1) * size] for i in range(n)]
+    del raw
+    names = [f"obj{i:04d}" for i in range(n)]
+    gib = n * size / 1e9
+    ec_kernels.reset_launches()
+    cluster = vstart.MiniCluster(n_osds=cfg["osds"], cfg=conf).start()
+    osds = list(cluster.osds.values())
+    try:
+        admin = cluster.client()
+        admin.create_pool(OSD_POOL, kind="ec", pg_num=cfg["pg_num"],
+                          ec_profile=osd_profile(dev, **cfg))
+        pool_id = admin._pool_id(OSD_POOL)
+        clients = [cluster.client() for _ in range(threads)]
+        res: dict = {"objects": n, "object_size": size}
+        written: list[int] = []
+
+        def write(i):
+            clients[i // per].write_full(OSD_POOL, names[i], payloads[i])
+            written.append(i)
+
+        def read(i):
+            got = clients[i // per].read(OSD_POOL, names[i])
+            if got != payloads[i]:
+                raise AssertionError(f"osd: {names[i]} read back wrong")
+
+        # writes
+        flushes: list = []
+        before = osd_counters(cluster)
+        with osd_flushes(cluster, flushes):
+            res["write_s"] = _each_thread(threads, per, write)
+        res["write"] = counter_delta(osd_counters(cluster), before)
+        res["write_folds"] = fold_summary(flushes)
+        osd_codecs_on(cluster, dev)
+        # two reads of every object; the second in the reverse order of
+        # the writes' completion, one object a thread at a time, so each
+        # primary's most recent write (its extent cache) is read again
+        # before a second-hit admission replaces it
+        before = osd_counters(cluster)
+        res["read1_s"] = _each_thread(threads, per, read)
+        res["read1"] = counter_delta(osd_counters(cluster), before)
+        order = written[::-1]
+        before = osd_counters(cluster)
+        res["read2_s"] = _threads(threads, lambda t: [
+            read(order[j]) for j in range(t, n, threads)])
+        res["read2"] = counter_delta(osd_counters(cluster), before)
+        # deep scrub of the first object's PG
+        seed = cluster.mon.osdmap.object_to_pg(pool_id, names[0])
+        before = osd_counters(cluster)
+        res["scrub"] = osd_scrub_pg(cluster, pool_id, seed)
+        res["scrub_counts"] = counter_delta(osd_counters(cluster), before)
+        # two OSDs of that PG lost (shards 0 and 1) and marked down: the
+        # placement re-draws their positions onto spares, whose shards
+        # recovery rebuilds while every object is read degraded
+        omap = cluster.mon.osdmap
+        victims = omap.pg_to_up_osds(pool_id, seed)[:cfg["lost"]]
+        lost = [(name, shard) for name in names for shard, osd in
+                enumerate(omap.pg_to_up_osds(
+                    pool_id, omap.object_to_pg(pool_id, name)))
+                if osd in victims]
+        epoch = omap.epoch
+        t1 = time.perf_counter()
+        for v in victims:
+            cluster.kill_osd(v)
+        cluster.wait_for_epoch(epoch + len(victims), timeout=cfg["wait_s"])
+        for c in [admin, *clients]:
+            _wait_until("a client's map", lambda: c.osdmap.epoch >=
+                        epoch + len(victims), cfg["wait_s"])
+        # every OSD holds the new map and every PG has peered on it (its
+        # primary heard from each member) before the reads, as a client
+        # that waits out `pg peering` would; recovery goes on beside them
+        _wait_until("the OSDs' maps", lambda: all(
+            o.osdmap.epoch >= epoch + len(victims)
+            for o in list(cluster.osds.values())), cfg["wait_s"])
+        osd_peered(cluster, cfg["wait_s"])
+        res["peering_s"] = time.perf_counter() - t1
+        flushes = []
+        before = osd_counters(cluster)
+        with osd_flushes(cluster, flushes):
+            res["degraded_s"] = _each_thread(threads, per, read)
+            _wait_until("recovery onto the spares", lambda: osd_rebuilt(
+                cluster, pool_id, lost), cfg["wait_s"])
+            res["recovery_s"] = time.perf_counter() - t1
+        res["degraded"] = counter_delta(osd_counters(cluster), before)
+        res["degraded_folds"] = fold_summary(flushes)
+        res["lost_shards"] = len(lost)
+        sample = names[::max(1, n // cfg["sample"])][:cfg["sample"]]
+        for name in sample:
+            read(names.index(name))
+        res["codecs"] = osd_codecs_on(cluster, dev)
+        res["victims"] = victims
+        res["faults"] = osd_faults(osds)
+    finally:
+        cluster.stop()
+    counts = ec_kernels.launch_counts()
+    res["phase_s"] = time.perf_counter() - t0
+    say("osd", osd_line(res, gib, dev))
+    return counts, res
+
+
+def _wait_until(what: str, done, wait_s: float) -> None:
+    deadline = time.monotonic() + wait_s
+    while not done():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"osd: {what} not within {wait_s} s")
+        time.sleep(0.02)
+
+
+def osd_line(res: dict, gib: float, dev: torch.device) -> str:
+    """The [osd] line: GB/s of each pass over the data, recovery
+    seconds, the batched launches, each kernel's launches, the copies
+    back per flush and the arena's hits."""
+    w, folds = res["write"], res["write_folds"].get("encode", [0, 0, 0])
+    region = {c: w[c] for c in ("gf_bitterm", "gf_bitxor", "gf_bitmm")}
+    return (f"write {gib / res['write_s']:.4f} GB/s ({res['write_s']:.3f} s),"
+            f" read {gib / res['read1_s']:.4f} GB/s ({res['read1_s']:.3f} s)"
+            f" then {gib / res['read2_s']:.4f} GB/s ({res['read2_s']:.3f} s;"
+            f" {res['read2']['cache_served']} served from the arena, "
+            f"{res['read2']['ec_arena_hits']} arena hits), degraded read "
+            f"{gib / res['degraded_s']:.4f} GB/s ({res['degraded_s']:.3f} s)"
+            f" with OSDs {res['victims']} lost (peered in "
+            f"{res['peering_s']:.3f} s), recovery of "
+            f"{res['lost_shards']} shards {res['recovery_s']:.3f} s "
+            f"({res['faults']['op_timeouts']} ops timed out, "
+            f"{res['faults']['dropped']} messages dropped); "
+            f"writes: {folds[0]} encode flushes of {folds[1]} ops "
+            f"({folds[1] / max(folds[0], 1):.2f} ops a launch, at most "
+            f"{folds[2]}), {w['fused']} fused encode+CRC, launches "
+            f"{json.dumps(region)} crc32c_chunks {w['crc32c_chunks']}, "
+            f"{w['ec_stage_d2h_copies'] / max(folds[0], 1):.2f} copies "
+            f"back a flush; degraded and recovery: "
+            f"{json.dumps(res['degraded_folds'])}; scrub "
+            f"{json.dumps(res['scrub'])}; {res['codecs']} codecs; "
+            f"{card(dev)}; phase "
+            f"{res['phase_s']:.1f} s")
+
+
+def check_osd(counts: dict[str, int], res: dict) -> None:
+    """Phase 17 launched a region kernel and G1 and never a plain
+    version; the writes took the fused op, the second read found the
+    arena, the scrub verified the PG's shards clean through the batcher
+    and the degraded reads decoded in folds; no op waited out the op
+    timeout and no OSD dropped a message."""
+    say("launches", f"osd: {json.dumps(counts)}")
+    region = [KERNELS[r][1] for r in KERNELS]
+    if not any(counts[c] > 0 for c in region):
+        raise AssertionError(f"no region kernel ({', '.join(region)}) "
+                             "launched on the osd phase")
+    if not counts[CRC_KERNEL[1]]:
+        raise AssertionError("G1 never launched on the osd phase")
+    if counts["plain"]:
+        raise AssertionError(f"a plain version ran {counts['plain']} "
+                             "times on the osd phase")
+    if not res["write"]["fused"]:
+        raise AssertionError("osd: no write took the fused encode+CRC op")
+    if not (res["read2"]["ec_arena_hits"] and
+            res["read2"]["cache_served"]):
+        raise AssertionError(f"osd: the second reads never found the "
+                             f"arena: {res['read2']}")
+    scrub = res["scrub"]
+    if not (scrub["objects"] and scrub["launches"]) or scrub["mismatches"]:
+        raise AssertionError(f"osd: scrub {scrub}")
+    if not res["scrub_counts"][CRC_KERNEL[1]]:
+        raise AssertionError("osd: the scrub did not launch G1")
+    if not (res["degraded_folds"].get("decode")
+            and any(res["degraded"][c] for c in region)):
+        raise AssertionError(f"osd: no degraded read decoded on a region "
+                             f"kernel: {res['degraded_folds']}")
+    if res["faults"]["op_timeouts"] or res["faults"]["dropped"]:
+        raise AssertionError(f"osd: {res['faults']['op_timeouts']} ops "
+                             f"timed out, {res['faults']['dropped']} "
+                             "messages dropped")
 
 
 def profile_totals() -> dict[str, list]:
@@ -2420,6 +2788,7 @@ def main() -> int:
     phase_sweep(dev.type)
     say("bench", f"phase 15: {time.perf_counter() - t_bench:.1f} s")
     check_cluster(phase_cluster(dev, np.random.default_rng(SEED)))
+    check_osd(*phase_osd(dev, np.random.default_rng(SEED)))
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

@@ -523,7 +523,7 @@ def test_recorded_flushes_sees_each_fold_kind_and_lets_go():
 
 def test_cluster_phase_rehearsal_on_cpu(capsys):
     """Phase 16's host steps at full size with device=cpu: the wire
-    corpus (52 checked, the three pending named), three monitors in a
+    corpus (53 checked, the two pending named), three monitors in a
     quorum, the tpu pool created from a backend=torch profile with no
     launch, 96 boots committed, the map pushed over TCP loopback in
     secure mode and its PG-mapping digest equal to CLUSTER_DIGEST; the
@@ -533,7 +533,7 @@ def test_cluster_phase_rehearsal_on_cpu(capsys):
                                       np.random.default_rng(9),
                                       encode_L=64 << 10)
     out = capsys.readouterr().out
-    assert "52 files checked" in out
+    assert "53 files checked" in out
     for name in chip_smoke.DENCODER_PENDING:
         assert name in out
     assert "96 OSDs on 12 hosts, pool ecpool ec size 11 pg_num 1024" in out
@@ -595,3 +595,66 @@ def test_cluster_pool_refuses_a_create_that_launches(monkeypatch):
                                     wait_s=60.0, resend_s=2.0)
     finally:
         mon.stop()
+
+
+def test_osd_phase_rehearsal_on_cpu(capsys):
+    """Phase 17 at 8 objects of 64 KiB from 4 threads in 8 PGs with
+    device=cpu: the 14-OSD cluster on the phase's config,
+    writes, two reads (the second served from the arena), a folded
+    scrub of one PG, two OSDs lost, degraded reads and the rebuild onto
+    the spares, all byte-exact; the plain versions ran, which check_osd
+    must refuse."""
+    counts, res = chip_smoke.phase_osd(
+        torch.device("cpu"), np.random.default_rng(5), objects=8,
+        object_size=64 << 10, threads=4, sample=4, pg_num=8)
+    out = capsys.readouterr().out
+    assert "[osd] write" in out and "served from the arena" in out
+    assert counts["plain"] > 0
+    assert all(counts[c] == 0 for c in ("gf_bitterm", "gf_bitxor",
+                                        "gf_bitmm", "crc32c_chunks"))
+    assert res["write"]["fused"] > 0
+    assert res["read2"]["cache_served"] > 0
+    assert res["read2"]["ec_arena_hits"] > 0
+    assert res["scrub"]["objects"] > 0 and res["scrub"]["mismatches"] == 0
+    assert res["lost_shards"] > 0 and res["degraded_folds"]["decode"][0]
+    assert res["codecs"] > 0
+    assert res["faults"] == {"op_timeouts": 0, "dropped": 0}
+    with pytest.raises(AssertionError, match="no region kernel"):
+        chip_smoke.check_osd(counts, res)
+
+
+def osd_result(**over) -> tuple[dict, dict]:
+    """Counts and numbers of a phase 17 that check_osd accepts."""
+    counts = {"gf_bitterm": 3, "gf_bitxor": 2, "gf_bitmm": 40,
+              "gf_sched_xor": 0, "crc32c_chunks": 50, "plain": 0}
+    res = {"write": {"fused": 30},
+           "read2": {"ec_arena_hits": 64, "cache_served": 8},
+           "scrub": {"objects": 11, "bytes": 1 << 20, "mismatches": 0,
+                     "launches": 11},
+           "scrub_counts": {"crc32c_chunks": 11},
+           "degraded": {"gf_bitterm": 1, "gf_bitxor": 0, "gf_bitmm": 9},
+           "degraded_folds": {"decode": [10, 12, 2]},
+           "faults": {"op_timeouts": 0, "dropped": 0}}
+    for key, value in over.items():
+        where, _, name = key.partition("__")
+        (counts if where == "counts" else res[where])[name] = value
+    return counts, res
+
+
+@pytest.mark.parametrize("fault,match", [
+    ({"counts__gf_bitterm": 0, "counts__gf_bitxor": 0,
+      "counts__gf_bitmm": 0}, "no region kernel"),
+    ({"counts__crc32c_chunks": 0}, "G1 never launched"),
+    ({"counts__plain": 1}, "a plain version ran"),
+    ({"write__fused": 0}, "fused"),
+    ({"read2__ec_arena_hits": 0}, "arena"),
+    ({"scrub__mismatches": 1}, "scrub"),
+    ({"scrub_counts__crc32c_chunks": 0}, "did not launch G1"),
+    ({"degraded__gf_bitmm": 0, "degraded__gf_bitterm": 0}, "decoded"),
+    ({"faults__op_timeouts": 1}, "1 ops timed out"),
+    ({"faults__dropped": 2}, "2 messages dropped"),
+])
+def test_osd_check_refuses_each_fault(fault, match):
+    chip_smoke.check_osd(*osd_result())
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_osd(*osd_result(**fault))

@@ -161,13 +161,64 @@ def test_control_plane_modules_import_alone():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
-    for pkg in ("auth", "compress", "mon", "msg", "osd", "parallel", "qos",
+    for pkg in ("auth", "compress", "mon", "msg", "parallel", "qos",
                 "slo", "telemetry"):
         names = {f"ceph_tpu_torch.{pkg}"} | {
             f"ceph_tpu_torch.{pkg}.{f[:-3]}"
             for f in os.listdir(os.path.join(PKG, pkg))
             if f.endswith(".py") and f != "__init__.py"}
         assert names <= set(CONTROL_PLANE_MODULES), pkg
+
+
+#: the OSDs, the object stores, the client and the vstart harness,
+#: imported one by one in a fresh interpreter by
+#: test_cluster_modules_import_alone
+CLUSTER_MODULES = tuple(
+    f"ceph_tpu_torch.{m}" for m in (
+        "osd", "osd.objectstore", "osd.pglog", "osd.kvstore", "osd.sstkv",
+        "osd.filestore", "osd.bluestore", "osd.classes", "osd.snaps",
+        "osd.objops", "osd.extent_cache", "osd.scrub", "osd.scheduler",
+        "osd.compression", "osd.intervals", "osd.daemon", "client",
+        "client.striper", "client.operations", "client.rados",
+        "tools.vstart", "tools.osd_main"))
+
+
+def test_cluster_modules_import_alone():
+    """Importing each module of the OSD slice, one after another in a
+    fresh interpreter, loads neither jax nor ceph_tpu; the list names
+    every module of ``osd/`` and ``client/``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *CLUSTER_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    for pkg in ("osd", "client"):
+        names = {f"ceph_tpu_torch.{pkg}"} | {
+            f"ceph_tpu_torch.{pkg}.{f[:-3]}"
+            for f in os.listdir(os.path.join(PKG, pkg))
+            if f.endswith(".py") and f != "__init__.py"}
+        assert names == {m for m in CLUSTER_MODULES
+                         if m.split(".")[1] == pkg}, pkg
+    ref_osd = {f for f in os.listdir(os.path.join(REPO, "ceph_tpu", "osd"))
+               if f.endswith(".py")}
+    assert ref_osd == {f for f in os.listdir(os.path.join(PKG, "osd"))
+                       if f.endswith(".py")}
+
+
+@pytest.mark.parametrize("module", ["osd.daemon", "client.rados",
+                                    "tools.vstart"])
+def test_cluster_entry_module_imports_alone(module):
+    """The OSD daemon, the client and the vstart harness, each the only
+    module a fresh interpreter imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          f"ceph_tpu_torch.{module}"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
 
 
 def test_parallel_package_holds_placement_alone():

@@ -256,6 +256,71 @@ def test_placement_parity_at_96_osds():
     assert sorted(changed) == [(2, 5), (2, 9)]
 
 
+
+def push(maps, om):
+    """``om`` as a receiver adopts it from a full-map push (frozen)."""
+    msg = type("Push", (), dict(map_bytes=om.encode_bytes(), inc_bytes=b"",
+                                base_epoch=0, epoch=om.epoch))
+    return maps.apply_map_push(None, msg)[0]
+
+
+def test_frozen_maps_place_as_the_reference():
+    """A receiver's map (apply_map_push, full and incremental) is frozen
+    and shares its up sets with every equal frozen map; every 8th PG of
+    both pools, up and acting, is the reference's, on the first call
+    and from the shared table, and a caller's edit of a returned set
+    does not reach the table."""
+    ref_maps = reference()[0]
+    ref, port = rich(ref_maps), rich(port_maps)
+    full = push(port_maps, port)
+    old = build(port_maps)
+    msg = type("Push", (), dict(map_bytes=b"", base_epoch=1, epoch=4,
+                                inc_bytes=port.diff_from(old).encode_bytes()))
+    inc = port_maps.apply_map_push(old, msg)[0]
+    assert port._placed is None and old._placed is None
+    assert full._placed is not None and inc._placed is full._placed
+    for pid, pool in sorted(ref.pools.items()):
+        for s in range(0, pool.pg_num, 8):
+            for temp in (True, False):
+                want = ref.pg_to_up_osds(pid, s, ignore_temp=temp)
+                for om in (full, inc, full):
+                    got = om.pg_to_up_osds(pid, s, ignore_temp=temp)
+                    assert got == want, (pid, s, temp)
+                    got.append(-5)
+    assert len(full._placed) == 2 * (PG_NUM + REP_PG_NUM) // 8
+
+
+def test_mutators_and_copies_thaw_a_frozen_map():
+    """deepcopy, apply_incremental and every mutator leave a map that
+    computes its placements afresh; a map whose placement inputs
+    differ gets a table of its own."""
+    om = push(port_maps, build(port_maps))
+    table = om._placed
+    before = om.pg_to_up_osds(1, 0)
+    copy = om.deepcopy()
+    assert copy._placed is None and om._placed is table
+    down = before[0]
+    copy.mark_down(down)
+    assert copy.pg_to_up_osds(1, 0)[0] != down
+    assert om.pg_to_up_osds(1, 0) == before
+    other = push(port_maps, copy)
+    assert other._placed is not table
+    assert other.pg_to_up_osds(1, 0) == copy.pg_to_up_osds(1, 0)
+    thawed = push(port_maps, build(port_maps))
+    assert thawed._placed is table
+    thawed.apply_incremental(copy.diff_from(thawed))
+    assert thawed._placed is None
+    assert thawed.pg_to_up_osds(1, 0) == copy.pg_to_up_osds(1, 0)
+    for mutate in (lambda m: m.mark_up(down), lambda m: m.mark_down(down),
+                   lambda m: m.mark_out(down),
+                   lambda m: m.add_osd(OSDS, "hostx"),
+                   lambda m: m.add_pool(port_maps.PoolSpec(
+                       3, "p3", "replicated", 3, 2, 8, {}))):
+        m = push(port_maps, build(port_maps))
+        mutate(m)
+        assert m._placed is None
+
+
 def test_object_to_pg_parity_for_20000_names():
     rng = np.random.default_rng(SEED)
     names = [f"{rng.integers(1 << 32):08x}.{i:016x}"
