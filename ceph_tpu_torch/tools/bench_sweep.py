@@ -2,13 +2,16 @@
 subprocess with a timeout and retries, results kept in a resumable state
 file.
 
-The twin of the JAX package's ``ceph_tpu/tools/bench_sweep.py`` for its
-BASELINE rows (configs 1-5): the matrix codes ride tools/bench_tpu (the
+The twin of the JAX package's ``ceph_tpu/tools/bench_sweep.py``: the
+BASELINE rows (configs 1-5) — the matrix codes ride tools/bench_tpu (the
 kernels on the card, digest-verified), SHEC and CLAY ride
 tools/ec_benchmark ``--json``, on the ``native`` backend and on
-``torch`` (the reference's ``jax`` rows).  The reference's ``bench_root``
-rows drive its repo-root bench.py cluster legs and are not ported here.
-Every child gets ``--device``.
+``torch`` (the reference's ``jax`` rows) — and the ``bench_root`` rows,
+which drive tools/bench_root's modes (the twin of the reference's
+repo-root bench.py) and keep the keys each row's ``extract`` names.
+Rows that share a tool and arguments share one child run per sweep.
+Every child gets ``--device``.  The reference's ``--multichip`` blob
+waits for the multi-GPU slice.
 
 The state file lies under the git-ignored ``ceph_tpu_torch/build/``
 (``BENCH_SWEEP.json``, or ``BENCH_SWEEP_CPU.json`` for ``--device cpu``,
@@ -38,14 +41,16 @@ STATE = {"cuda": os.path.join(BUILD, "BENCH_SWEEP.json"),
          "cpu": os.path.join(BUILD, "BENCH_SWEEP_CPU.json")}
 #: the module each configuration's ``tool`` runs
 TOOLS = {"bench_tpu": "ceph_tpu_torch.tools.bench_tpu",
-         "ec_benchmark": "ceph_tpu_torch.tools.ec_benchmark"}
+         "ec_benchmark": "ceph_tpu_torch.tools.ec_benchmark",
+         "bench_root": "ceph_tpu_torch.tools.bench_root"}
 
 MiB = 1024 * 1024
 
 
 def configs() -> list[dict]:
     """The BASELINE rows, ids and arguments as the reference's with its
-    ``jax`` backend as ``torch``."""
+    ``jax`` backend as ``torch``, then the ``bench_root`` rows as the
+    reference's."""
     out = []
 
     def tpu(cid, k, m, stripe, batch, technique="reed_sol_van",
@@ -100,7 +105,108 @@ def configs() -> list[dict]:
         plugin(f"clay_k8m4d11_{backend}_repair1", "clay",
                [f"backend={backend}", "k=8", "m=4", "d=11"],
                workload="decode", erasures=1)
+    out.extend(bench_root_configs())
     return out
+
+
+def bench_root_configs() -> list[dict]:
+    """The reference's ``bench_root`` rows (6-11): the same ids, argv and
+    ``extract`` keys, run by tools/bench_root."""
+    def row(cid, argv, extract=None):
+        cfg = {"id": cid, "tool": "bench_root", "argv": argv}
+        if extract:
+            cfg["extract"] = extract
+        return cfg
+
+    return [
+        # 6. the cross-op batcher legs: the sharded 8-writer burst and
+        # the recovery-storm decode burst
+        row("ec_batch_sharded", ["--ec-batch"]),
+        row("ec_recovery_storm", ["--ec-recovery"]),
+        # 6b. the {rs, clay, lrc, shec} wide matrix's compact row
+        row("ec_wide_repair", ["--ec-recovery"],
+            ["wide_repair_bytes_per_lost_byte", "wide_degraded_p99_ms",
+             "wide_locality_beats_rs", "wide_ok", "digest_verified"]),
+        # 7. the coalesced read pipeline through a MiniCluster
+        row("ec_read_burst", ["--ec-read"]),
+        # 8. the device-resident stripe plane
+        row("ec_e2e_ratio", ["--ec-batch"],
+            ["kernel_gbps", "kernel_leg_gbps", "staging_h2d_gbps",
+             "e2e_gbps", "e2e_chunk_kib", "e2e_device_share",
+             "e2e_vs_kernel_quiet", "e2e_within_2x_kernel",
+             "d2h_copies_per_flush", "single_d2h_per_flush",
+             "digest_verified"]),
+        # 8a2. the zero-copy wire path
+        row("wire_path", ["--ec-batch"],
+            ["wire_gbps", "wire_secure_gbps", "wire_msg_mib",
+             "wire_tx_flatten_copies_per_op",
+             "wire_rx_copy_copies_per_op", "wire_flatten_copies_per_mib",
+             "wire_secure_tx_flatten_copies_per_op",
+             "wire_secure_rx_copy_copies_per_op", "wire_zero_copy_ok",
+             "digest_verified"]),
+        # 8a2b. the transport-stack sweep
+        row("wire_path_stack", ["--ec-batch"],
+            ["wire_stack_posix_gbps",
+             "wire_stack_posix_syscalls_tx_per_op",
+             "wire_stack_posix_syscalls_rx_per_op",
+             "wire_stack_uring_gbps",
+             "wire_stack_uring_syscalls_tx_per_op",
+             "wire_stack_uring_syscalls_rx_per_op",
+             "wire_stack_uring_sqe_batches",
+             "wire_stack_uring_reg_buf_recycled",
+             "wire_stack_speedup_vs_posix", "wire_uring_active",
+             "wire_stack_gate", "wire_stack_ok", "digest_verified"]),
+        # 8a3. the async group-commit store pipeline
+        row("store_commit", ["--ec-batch"],
+            ["store_commit_async_gbps", "store_commit_sync_gbps",
+             "store_commit_speedup", "store_fsyncs_per_txn",
+             "store_fsyncs_per_txn_rounds", "store_ingest_ref_share",
+             "store_commit_ok", "digest_verified"]),
+        # 8a4. background LSM maintenance for the KV tier
+        row("kv_maint", ["--ec-batch"],
+            ["kv_maint_bg_p99_ms", "kv_maint_inline_p99_ms",
+             "kv_maint_p99_ratio", "kv_maint_flushes",
+             "kv_maint_compactions", "kv_maint_inline_maintenance",
+             "kv_maint_stalls", "kv_maint_slowdowns",
+             "kv_maint_cache_hits", "kv_maint_identical", "kv_maint_ok",
+             "digest_verified"]),
+        # 8b. kernel auto-selection: picks and each candidate's GB/s
+        row("ec_kernel_pick", ["--ec-batch"],
+            ["kernel_gbps", "ec_kernel_picks",
+             "ec_kernel_candidates_gbps", "ec_kernel_race_winner",
+             "digest_verified"]),
+        # 8c. sampled-tracing and exemplar overheads
+        row("trace_overhead", ["--ec-batch"],
+            ["trace_overhead_gbps", "trace_overhead_pct_at_001",
+             "trace_overhead_ok", "exemplar_overhead_pct_at_001",
+             "exemplar_overhead_ok", "digest_verified"]),
+        # 8d. the hot-object read storm
+        row("read_storm", ["--read-storm"],
+            ["value", "vs_baseline", "spread", "lease_hit_rate", "legs",
+             "gates", "digest_verified"]),
+        # 9. the many-client saturation harness
+        row("saturate_qos", ["--saturate"],
+            ["value", "vs_baseline", "saturation_knee_per_s",
+             "client_read_p50_ms", "client_read_p99_ms",
+             "client_write_p50_ms", "client_write_p99_ms",
+             "recovery_eta_s", "recovery_wall_s", "msgs_per_op",
+             "slow_ops_trips", "qos", "ok"]),
+        # 10. the multi-tenant QoS control plane
+        row("saturate_tenant", ["--saturate", "--tenants"],
+            ["tenant_isolation_ratio", "gold_solo_qwait_p99_ms",
+             "gold_flood_qwait_p99_ms", "gold_flood_achieved_per_s",
+             "weight_split_ratio", "weight_served", "controller_retunes",
+             "controller_final_res", "controller_convergence_error",
+             "qos_events", "invariants", "ok"]),
+        # 11. folded deep scrub and inline compression
+        row("scrub_throughput", ["--scrub"],
+            ["value", "vs_baseline", "fold_backend", "objects", "bytes",
+             "loop_s", "folded_s", "false_mismatches",
+             "corruption_detected_both", "ok"]),
+        row("compress_ratio", ["--scrub"],
+            ["compress_ratio", "compress_roundtrip_ok",
+             "incompressible_falls_through", "ok"]),
+    ]
 
 
 def command(cfg: dict, device: str) -> list[str]:
@@ -109,22 +215,37 @@ def command(cfg: dict, device: str) -> list[str]:
             + ["--device", device])
 
 
-def run_config(cfg: dict, timeout: float, device: str) -> dict:
-    """{"result": the child's last JSON line + wall_s} or {"error": ...}."""
+def run_config(cfg: dict, timeout: float, device: str,
+               raw_cache: dict | None = None) -> dict:
+    """{"result": the child's last JSON line (only the ``extract`` keys
+    where the row names them) + wall_s} or {"error": ...}.  Within one
+    sweep, rows of the same tool and argv share one child's line
+    through ``raw_cache`` (marked ``reused_run``)."""
     t0 = time.time()
-    try:
-        proc = subprocess.run(command(cfg, device), capture_output=True,
-                              text=True, timeout=timeout, cwd=REPO)
-    except subprocess.TimeoutExpired:
-        return {"error": f"timeout after {timeout:.0f}s"}
-    if proc.returncode != 0:
-        return {"error": f"rc={proc.returncode}: "
-                         f"{proc.stderr.strip()[-500:]}"}
-    try:
-        result = json.loads(proc.stdout.strip().splitlines()[-1])
-    except (json.JSONDecodeError, IndexError):
-        return {"error": f"bad output: {proc.stdout[-300:]}"}
+    key = (cfg["tool"], tuple(cfg["argv"]))
+    raw = raw_cache.get(key) if raw_cache is not None else None
+    reused = raw is not None
+    if raw is None:
+        try:
+            proc = subprocess.run(command(cfg, device),
+                                  capture_output=True, text=True,
+                                  timeout=timeout, cwd=REPO)
+        except subprocess.TimeoutExpired:
+            return {"error": f"timeout after {timeout:.0f}s"}
+        if proc.returncode != 0:
+            return {"error": f"rc={proc.returncode}: "
+                             f"{proc.stderr.strip()[-500:]}"}
+        try:
+            raw = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (json.JSONDecodeError, IndexError):
+            return {"error": f"bad output: {proc.stdout[-300:]}"}
+        if raw_cache is not None:
+            raw_cache[key] = raw
+    result = ({k: raw.get(k) for k in cfg["extract"]}
+              if cfg.get("extract") else dict(raw))
     result["wall_s"] = round(time.time() - t0, 1)
+    if reused:
+        result["reused_run"] = True
     return {"result": result}
 
 
@@ -162,6 +283,7 @@ def main(argv=None) -> int:
     if not todo:
         p.error(f"no configuration {args.only!r}")
     done = skipped = failed = 0
+    raw_cache: dict = {}
     for cfg in todo:
         cid = cfg["id"]
         prior = state.get(cid, {})
@@ -170,7 +292,7 @@ def main(argv=None) -> int:
             continue
         print(f"sweep: {cid} ...", file=sys.stderr, flush=True)
         for attempt in range(args.retries + 1):
-            entry = run_config(cfg, args.timeout, args.device)
+            entry = run_config(cfg, args.timeout, args.device, raw_cache)
             if "result" in entry:
                 break
             print(f"sweep: {cid} attempt {attempt + 1} failed: "

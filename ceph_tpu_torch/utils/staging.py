@@ -189,6 +189,13 @@ def _events(device: torch.device):
     return start, end
 
 
+def _host_tensor(host: np.ndarray) -> torch.Tensor:
+    """``host`` as a CPU tensor: a view when numpy lets it be written,
+    else a copy (the library refuses read-only views quietly only by
+    warning)."""
+    return torch.from_numpy(host if host.flags.writeable else host.copy())
+
+
 def device_put_landed(host: np.ndarray, device, *, force: bool = True,
                       record: bool = True, exemplar=None) -> torch.Tensor:
     """Stage a host buffer to ``device`` and return the tensor there.
@@ -205,17 +212,19 @@ def device_put_landed(host: np.ndarray, device, *, force: bool = True,
         t0 = time.perf_counter()
         dev = torch.from_numpy(host.copy())
         dt = time.perf_counter() - t0
-    else:
-        pinned = torch.empty(host.shape, dtype=torch.from_numpy(
-            host[:0]).dtype, pin_memory=True)
-        pinned.numpy()[...] = host
+    elif force:
+        pinned = _host_tensor(host).pin_memory()
         start, end = _events(device)
         dev = pinned.to(device, non_blocking=True)
         end.record(torch.cuda.current_stream(device))
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3
+    else:
+        # queued: no timing events (nothing reads them), and each library
+        # call made here gives the interpreter lock to the other
+        # submitting threads and waits to take it back
+        dev = _host_tensor(host).pin_memory().to(device, non_blocking=True)
         dt = None
-        if force:
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
     if record:
         note_h2d(host.nbytes, dt, exemplar=exemplar)
     return dev

@@ -105,6 +105,29 @@ in order, one line each:
              [osd] line: write, read and degraded-read GB/s, recovery
              seconds, ops a launch, launches of each kernel, copies back
              a flush, arena hits, timed-out ops and dropped messages.
+18. bench_root — the port's twin of the repo's bench.py
+             (tools/bench_root) at the reference's defaults: the kernel
+             modes in this process, each with its own launch counts —
+             ``--scrub`` (384 objects folded through ECBatcher.verify
+             into G1), ``--ec-batch --no-overhead`` (the batched,
+             per-op, sharded, plane and adaptive bursts, the kernel
+             candidates on a staged fold, the wire, store and KV legs;
+             not the tracing, exemplar and perf-query overhead bursts,
+             whose 5 % gates two sets of identical bursts miss on the
+             card's host, experiments/burst_noise.py) and
+             ``--ec-recovery --progress`` (the storm, the
+             max_bytes sweep, the wide matrix and the progress story);
+             then the cluster modes, each a child with its timeout
+             (``--ec-read``, ``--read-storm``, ``--saturate --smoke``:
+             native clusters, no kernel), and the sweep's
+             scrub_throughput row through tools/bench_sweep.  It prints
+             a [bench_root] line of each mode's numbers.  Two options of
+             ``--saturate`` are not run here (ROADMAP, Queue 3):
+             ``--tenants``, whose weight-split gate reads below its
+             bound in both packages on a host of this size, and
+             ``--frontend rgw``, whose recovery deadline a fault shared
+             with the JAX package misses in some runs (a divergent
+             rollback drops shards of the gateway's objects).
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
 bit-matrix path, phase 11 the write path, phases 12-14 the wide path and
@@ -131,7 +154,11 @@ kernel and G1 must have launched and the plain versions never, every
 codec and arena must be on the card, a write must have taken the fused
 op, the second reads must have found the arena, the scrub must have
 verified the PG clean on G1 and the degraded reads must have decoded on a
-region kernel.  Then one
+region kernel.  On the bench_root phase every mode must exit 0 with its
+row verified;
+``--scrub`` must have launched G1, ``--ec-batch`` and ``--ec-recovery``
+K1, K2 and G4, none a plain version or an ``xla`` pick, and the plane
+leg must have made one copy back a flush.  Then one
 JSON line lists every kernel, and the last line is the ``{"ok": true,
 "device": ...}`` object.  Any failure exits nonzero, and so does a
 process with no CUDA card.
@@ -166,8 +193,9 @@ from ceph_tpu_torch.msg.messenger import (Dispatcher, LocalNetwork,
 from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
                                 native, xor_schedule)
 from ceph_tpu_torch.osd.objectstore import CollectionId, ObjectId
-from ceph_tpu_torch.tools import (bench_sweep, bench_tpu, dencoder,
-                                  ec_benchmark, ec_non_regression, vstart)
+from ceph_tpu_torch.tools import (bench_root, bench_sweep, bench_tpu,
+                                  dencoder, ec_benchmark, ec_non_regression,
+                                  vstart)
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.config import default_config
 from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
@@ -2708,6 +2736,142 @@ def check_osd(counts: dict[str, int], res: dict) -> None:
                              "messages dropped")
 
 
+#: phase 18: tools/bench_root's kernel modes, run in this process at the
+#: reference's defaults; each with the launch counters that must move
+BENCH_ROOT_REGION = tuple(KERNELS[r][1] for r in ("pallas", "bitxor", "mxu"))
+BENCH_ROOT_KERNEL_MODES = (
+    ("scrub", ["--scrub"], (CRC_KERNEL[1],)),
+    ("ec-batch", ["--ec-batch", "--no-overhead"], BENCH_ROOT_REGION),
+    ("ec-recovery", ["--ec-recovery", "--progress"], BENCH_ROOT_REGION))
+#: the cluster modes (native clusters, no kernel), each a child with a
+#: timeout in seconds
+BENCH_ROOT_CLUSTER_MODES = (
+    ("ec-read", ["--ec-read"], 180),
+    ("read-storm", ["--read-storm"], 180),
+    ("saturate", ["--saturate", "--smoke"], 180))
+#: the sweep row phase 18 runs through tools/bench_sweep
+BENCH_ROOT_SWEEP_ROW = "scrub_throughput"
+
+
+def bench_root_row(out: str) -> dict:
+    """The JSON row a bench_root mode printed last."""
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def check_bench_root(mode: str, row: dict, counts: dict[str, int],
+                     need=(), picks=None) -> None:
+    """A kernel mode of phase 18: its row verified (``digest_verified``
+    or ``ok``), every counter in ``need`` moved, no plain version ran,
+    no kernel pick named ``xla`` (the row's ``ec_kernel_picks`` and
+    ``picks``, signature -> kernel, booked during the mode), and where
+    the row has the plane leg, one copy back a flush."""
+    if not (row.get("digest_verified") is True or row.get("ok") is True):
+        raise AssertionError(f"bench_root {mode}: row not verified: "
+                             f"{json.dumps(row)[:2000]}")
+    for ctr in need:
+        if counts.get(ctr, 0) <= 0:
+            raise AssertionError(f"bench_root {mode}: {ctr} never launched")
+    if counts.get("plain"):
+        raise AssertionError(f"bench_root {mode}: a plain version ran "
+                             f"{counts['plain']} times")
+    xla = {s: k for s, k in {**row.get("ec_kernel_picks", {}),
+                             **(picks or {})}.items() if k == "xla"}
+    if xla:
+        raise AssertionError(f"bench_root {mode}: xla picks {xla}")
+    if "d2h_copies_per_flush" in row and row["d2h_copies_per_flush"] != 1.0:
+        raise AssertionError(f"bench_root {mode}: "
+                             f"{row['d2h_copies_per_flush']} copies back a "
+                             "flush, want 1.0")
+
+
+def check_bench_root_exit(mode: str, rc: int, row: dict) -> None:
+    """A mode of phase 18 must exit 0, whichever of its gates failed."""
+    if rc != 0:
+        raise AssertionError(f"bench_root {mode} exit {rc}: "
+                             f"{json.dumps(row)[:2000]}")
+
+
+def bench_root_line(mode: str, row: dict, wall_s: float, where: str
+                    ) -> str:
+    """The [bench_root] line of one mode: its headline numbers."""
+    keys = {"ec-batch": ("value", "vs_baseline", "ops_per_launch",
+                         "per_op_gbps", "e2e_gbps", "kernel_gbps",
+                         "e2e_device_share", "ec_kernel_candidates_gbps",
+                         "ec_kernel_race_winner",
+                         "d2h_copies_per_flush", "wire_gbps",
+                         "store_fsyncs_per_txn", "kv_maint_p99_ratio"),
+            "ec-recovery": ("value", "vs_baseline", "max_bytes_sweet_spot",
+                            "wide_repair_bytes_per_lost_byte",
+                            "wide_degraded_p99_ms"),
+            "scrub": ("value", "vs_baseline", "fold_backend", "objects",
+                      "folded_s", "loop_s"),
+            "ec-read": ("value", "vs_baseline", "decode_launches_per_op"),
+            "read-storm": ("value", "vs_baseline", "spread",
+                           "lease_hit_rate")}.get(
+                mode, ("value", "vs_baseline", "saturation_knee_per_s",
+                       "client_read_p99_ms", "client_write_p99_ms",
+                       "recovery_wall_s"))
+    return (f"{mode} {row.get('unit', '')}: "
+            + json.dumps({k: row.get(k) for k in keys})
+            + f"; {wall_s:.1f} s; {where}")
+
+
+def phase_bench_root(dev: torch.device) -> dict[str, tuple]:
+    """Phase 18: the kernel modes in this process, each with its own
+    launch counts, then the cluster modes as children and the sweep row;
+    returns mode -> (row, counts or None)."""
+    where = card(dev)
+    out: dict[str, tuple] = {}
+    for mode, argv, need in BENCH_ROOT_KERNEL_MODES:
+        t0, since = time.perf_counter(), time.time()
+        ec_kernels.reset_launches()
+        err, text = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(text):
+            rc = bench_root.main(argv + ["--device", dev.type])
+        counts = ec_kernels.launch_counts()
+        try:
+            row = bench_root_row(text.getvalue())
+            check_bench_root_exit(mode, rc, row)
+            check_bench_root(mode, row, counts, need, {
+                s: p["picked"] for s, p in picks_since(since).items()})
+        except Exception:
+            print(err.getvalue()[-4000:], file=sys.stderr)
+            raise
+        say("bench_root", bench_root_line(
+            mode, row, time.perf_counter() - t0, where)
+            + f"; launches {json.dumps(counts)}")
+        out[mode] = (row, counts)
+    for mode, argv, timeout in BENCH_ROOT_CLUSTER_MODES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.bench_root", *argv,
+             "--device", dev.type], capture_output=True, text=True,
+            timeout=timeout, cwd=REPO)
+        try:
+            row = bench_root_row(proc.stdout)
+            check_bench_root_exit(mode, proc.returncode, row)
+        except Exception:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise
+        say("bench_root", bench_root_line(
+            mode, row, time.perf_counter() - t0, where))
+        out[mode] = (row, None)
+    t0 = time.perf_counter()
+    run_quiet("bench_sweep", bench_sweep.main,
+              ["--only", BENCH_ROOT_SWEEP_ROW, "--device", dev.type,
+               "--retries", "0"])
+    with open(bench_sweep.STATE[dev.type]) as f:
+        entry = json.load(f)[BENCH_ROOT_SWEEP_ROW]
+    res = entry.get("result", {})
+    if res.get("ok") is not True or res.get("fold_backend") != "torch":
+        raise AssertionError(f"bench_sweep {BENCH_ROOT_SWEEP_ROW}: {entry}")
+    say("bench_root", f"bench_sweep --only {BENCH_ROOT_SWEEP_ROW}: "
+                      + json.dumps(res) + f"; {time.perf_counter() - t0:.1f}"
+                      f" s with the child's start; {where}")
+    out["sweep"] = (res, None)
+    return out
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -2789,6 +2953,9 @@ def main() -> int:
     say("bench", f"phase 15: {time.perf_counter() - t_bench:.1f} s")
     check_cluster(phase_cluster(dev, np.random.default_rng(SEED)))
     check_osd(*phase_osd(dev, np.random.default_rng(SEED)))
+    t_root = time.perf_counter()
+    phase_bench_root(dev)
+    say("bench_root", f"phase 18: {time.perf_counter() - t_root:.1f} s")
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

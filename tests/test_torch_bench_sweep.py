@@ -1,6 +1,7 @@
-"""The port's sweep tool (tools/bench_sweep.py): its BASELINE rows are
-the reference's, and its state file is written atomically, with a stub
-child in place of a real bench."""
+"""The port's sweep tool (tools/bench_sweep.py): its BASELINE and
+bench_root rows are the reference's, rows of one child share its run,
+and its state file is written atomically, with a stub child in place of
+a real bench."""
 
 import json
 import os
@@ -12,13 +13,52 @@ from ceph_tpu_torch.tools import bench_sweep
 
 def test_rows_are_the_references_baseline_rows():
     """Ids and arguments as the reference's configs(), its ``jax``
-    backend as ``torch``, its bench_root rows left out."""
+    backend as ``torch``; then its bench_root rows, ids, argv and
+    ``extract`` keys as the reference's."""
     want = [{"id": c["id"].replace("_jax", "_torch"), "tool": c["tool"],
              "argv": [a.replace("backend=jax", "backend=torch")
                       for a in c["argv"]]}
             for c in ref_sweep.configs() if c["tool"] != "bench_root"]
+    want += [c for c in ref_sweep.configs() if c["tool"] == "bench_root"]
     assert bench_sweep.configs() == want
     assert {c["tool"] for c in want} == set(bench_sweep.TOOLS)
+
+
+def test_bench_root_rows_are_the_references_sixteen():
+    rows = bench_sweep.bench_root_configs()
+    assert len(rows) == 16
+    assert rows == [c for c in ref_sweep.configs()
+                    if c["tool"] == "bench_root"]
+    assert bench_sweep.TOOLS["bench_root"] == \
+        "ceph_tpu_torch.tools.bench_root"
+    cmd = bench_sweep.command(rows[0], "cpu")
+    assert cmd == [sys.executable, "-m", "ceph_tpu_torch.tools.bench_root",
+                   "--ec-batch", "--device", "cpu"]
+
+
+def test_rows_of_one_child_share_its_run(monkeypatch):
+    """ec_e2e_ratio and ec_kernel_pick both read --ec-batch: one child,
+    each row keeps its own extract keys."""
+    calls = []
+
+    def stub(cfg, device):
+        calls.append(cfg["argv"])
+        return [sys.executable, "-c",
+                "import json; print(json.dumps({'kernel_gbps': 1.5, "
+                "'e2e_gbps': 0.5, 'digest_verified': True, 'x': 1}))"]
+
+    monkeypatch.setattr(bench_sweep, "command", stub)
+    rows = {c["id"]: c for c in bench_sweep.bench_root_configs()}
+    cache: dict = {}
+    a = bench_sweep.run_config(rows["ec_e2e_ratio"], 60, "cpu", cache)
+    b = bench_sweep.run_config(rows["ec_kernel_pick"], 60, "cpu", cache)
+    assert calls == [["--ec-batch"]]
+    assert set(a["result"]) == set(rows["ec_e2e_ratio"]["extract"]) | {
+        "wall_s"}
+    assert a["result"]["e2e_gbps"] == 0.5
+    assert a["result"]["staging_h2d_gbps"] is None
+    assert b["result"]["reused_run"] is True
+    assert b["result"]["kernel_gbps"] == 1.5
 
 
 def test_command_passes_the_device():
@@ -75,7 +115,10 @@ def test_state_is_written_atomically_and_resumes(tmp_path, monkeypatch,
     seen.clear()
     assert bench_sweep.main(["--device", "cpu", "--retries", "1"]) == 1
     n = len(bench_sweep.configs())
-    assert len(seen) == n - 1 + 1  # every other row once, one retried
+    # every other child once (rows of one child share it), one retried
+    children = {(c["tool"], tuple(c["argv"])) for c in bench_sweep.configs()
+                if c["id"] != "headline_1M_b64"}
+    assert len(seen) == len(children) + 1
     assert ("headline_1M_b64", "cpu") not in seen
     state = json.load(open(paths["cpu"]))
     assert len(state) == n

@@ -6,6 +6,7 @@ the kernels and never the plain versions; here the counts show the
 opposite, which check_main_path must refuse.  Byte checks inside the
 phases compare exactly (tolerance 0)."""
 
+import json
 import os
 import sys
 import types
@@ -658,3 +659,119 @@ def test_osd_check_refuses_each_fault(fault, match):
     chip_smoke.check_osd(*osd_result())
     with pytest.raises(AssertionError, match=match):
         chip_smoke.check_osd(*osd_result(**fault))
+
+
+# ------------------------------------------------------------ phase 18
+def bench_root_fixture(mode: str, **over) -> tuple[dict, dict, tuple]:
+    """A row, counts and needed counters of a phase-18 kernel mode that
+    check_bench_root accepts."""
+    need = dict((m, n) for m, _argv, n in
+                chip_smoke.BENCH_ROOT_KERNEL_MODES)[mode]
+    counts = {"gf_bitterm": 30, "gf_bitxor": 28, "gf_bitmm": 40,
+              "gf_sched_xor": 0, "crc32c_chunks": 16, "plain": 0}
+    row = {"scrub": {"ok": True, "fold_backend": "torch"},
+           "ec-batch": {"digest_verified": True,
+                        "d2h_copies_per_flush": 1.0,
+                        "ec_kernel_picks": {"pick/3x8/m/L16384": "mxu"}},
+           "ec-recovery": {"digest_verified": True}}[mode]
+    for key, value in over.items():
+        where, _, name = key.partition("__")
+        (counts if where == "counts" else row)[name] = value
+    return row, counts, need
+
+
+def test_bench_root_modes_are_the_issues():
+    modes = {m: (argv, need) for m, argv, need in
+             chip_smoke.BENCH_ROOT_KERNEL_MODES}
+    assert modes["scrub"] == (["--scrub"], ("crc32c_chunks",))
+    assert modes["ec-batch"] == (["--ec-batch", "--no-overhead"],
+                                 ("gf_bitterm", "gf_bitxor", "gf_bitmm"))
+    assert modes["ec-recovery"] == (["--ec-recovery", "--progress"],
+                                    ("gf_bitterm", "gf_bitxor", "gf_bitmm"))
+    assert [argv for _m, argv, _t in chip_smoke.BENCH_ROOT_CLUSTER_MODES] \
+        == [["--ec-read"], ["--read-storm"], ["--saturate", "--smoke"]]
+    from ceph_tpu_torch.tools import bench_sweep
+    assert chip_smoke.BENCH_ROOT_SWEEP_ROW in {
+        c["id"] for c in bench_sweep.bench_root_configs()}
+
+
+@pytest.mark.parametrize("mode,fault,match", [
+    ("scrub", {"row__ok": False}, "not verified"),
+    ("scrub", {"counts__crc32c_chunks": 0}, "crc32c_chunks never launched"),
+    ("ec-batch", {"row__digest_verified": False}, "not verified"),
+    ("ec-batch", {"counts__gf_bitmm": 0}, "gf_bitmm never launched"),
+    ("ec-batch", {"counts__gf_bitxor": 0}, "gf_bitxor never launched"),
+    ("ec-batch", {"counts__plain": 3}, "a plain version ran 3 times"),
+    ("ec-batch", {"row__ec_kernel_picks": {"pick/3x8/m/L4096": "xla"}},
+     "xla picks"),
+    ("ec-batch", {"row__d2h_copies_per_flush": 2.0}, "copies back"),
+    ("ec-recovery", {"counts__gf_bitterm": 0}, "gf_bitterm never launched"),
+    ("ec-recovery", {"row__digest_verified": None}, "not verified"),
+])
+def test_bench_root_check_refuses_each_fault(mode, fault, match):
+    chip_smoke.check_bench_root(mode, *bench_root_fixture(mode))
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_bench_root(mode, *bench_root_fixture(mode, **fault))
+
+
+def test_bench_root_check_reads_the_picks_booked_during_the_mode():
+    row, counts, need = bench_root_fixture("ec-recovery")
+    chip_smoke.check_bench_root("ec-recovery", row, counts, need,
+                                {"pick/8x8/m/L16384": "pallas"})
+    with pytest.raises(AssertionError, match="xla picks"):
+        chip_smoke.check_bench_root("ec-recovery", row, counts, need,
+                                    {"pick/8x8/m/L16384": "xla"})
+
+
+def test_bench_root_line_names_the_card():
+    row = {"unit": "GB/s", "value": 0.13, "vs_baseline": 0.7,
+           "e2e_gbps": 0.2, "ec_kernel_race_winner": "pallas"}
+    line = chip_smoke.bench_root_line("ec-batch", row, 23.4,
+                                      "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line.startswith("ec-batch GB/s: {")
+    assert '"value": 0.13' in line and '"ec_kernel_race_winner": "pallas"' \
+        in line
+    assert line.endswith("23.4 s; NVIDIA H100 80GB HBM3, 700.00 W")
+    assert '"saturation_knee_per_s"' in chip_smoke.bench_root_line(
+        "saturate-rgw", {"value": 1}, 1.0, "x")
+
+
+def test_bench_root_phase_rehearsal_on_cpu(monkeypatch, capsys):
+    """Phase 18's kernel-mode loop on the CPU at a small size: the scrub
+    runs, and on the CPU (the native sweep, no kernel) check_bench_root
+    refuses it, as it must."""
+    monkeypatch.setenv("BENCH_SCRUB_OBJECTS", "16")
+    monkeypatch.setattr(chip_smoke, "BENCH_ROOT_KERNEL_MODES",
+                        chip_smoke.BENCH_ROOT_KERNEL_MODES[:1])
+    monkeypatch.setattr(chip_smoke, "card", lambda dev: dev.type)
+    with pytest.raises(AssertionError,
+                       match="crc32c_chunks never launched"):
+        chip_smoke.phase_bench_root(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("mode", ["scrub", "ec-batch", "ec-recovery",
+                                  "ec-read", "read-storm", "saturate"])
+def test_bench_root_exit_is_taken_as_is(mode):
+    """Any nonzero exit of a mode fails phase 18, whatever gate made it:
+    the row rides the message."""
+    chip_smoke.check_bench_root_exit(mode, 0, {"ok": True})
+    row = {"digest_verified": True, "trace_overhead_ok": False}
+    with pytest.raises(AssertionError,
+                       match=f"bench_root {mode} exit 1: .*trace_overhead_ok"):
+        chip_smoke.check_bench_root_exit(mode, 1, row)
+
+
+def test_bench_root_phase_fails_on_a_mode_that_exits_nonzero(monkeypatch):
+    """A kernel mode whose row verifies and whose kernels launched still
+    fails the phase when it exits 1 (a timing gate of bench.py)."""
+    row, counts, need = bench_root_fixture("scrub")
+
+    def fake_main(argv):
+        print(json.dumps({**row, "trace_overhead_ok": False}))
+        return 1
+    monkeypatch.setattr(chip_smoke.bench_root, "main", fake_main)
+    monkeypatch.setattr(chip_smoke.ec_kernels, "launch_counts",
+                        lambda: counts)
+    monkeypatch.setattr(chip_smoke, "card", lambda dev: dev.type)
+    with pytest.raises(AssertionError, match="bench_root scrub exit 1"):
+        chip_smoke.phase_bench_root(torch.device("cpu"))

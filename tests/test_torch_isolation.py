@@ -277,3 +277,83 @@ def test_cuda_construction_raises_without_card():
     fn = StripeCodec(2, 1).encode_graph()
     out = fn(torch.ones((2, 8), dtype=torch.uint8))
     assert out.device.type == "cpu"
+
+
+#: the bench-modes slice: the load harness, the S3 gateway, the trace
+#: tool and the bench driver, imported one by one in a fresh interpreter
+#: by test_bench_slice_modules_import_alone
+BENCH_SLICE_MODULES = tuple(
+    f"ceph_tpu_torch.{m}" for m in (
+        "load", "load.profiles", "load.generator", "load.load_worker",
+        "load.scenarios", "services", "services.s3auth", "services.rgw",
+        "tools.trace_tool", "tools.bench_root"))
+
+
+def test_bench_slice_modules_import_alone():
+    """Importing each module of the bench-modes slice, one after another
+    in a fresh interpreter, loads neither jax nor ceph_tpu; the list
+    names every module of ``load/`` and ``services/``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *BENCH_SLICE_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    for pkg in ("load", "services"):
+        names = {f"ceph_tpu_torch.{pkg}"} | {
+            f"ceph_tpu_torch.{pkg}.{f[:-3]}"
+            for f in os.listdir(os.path.join(PKG, pkg))
+            if f.endswith(".py") and f != "__init__.py"}
+        assert names == {m for m in BENCH_SLICE_MODULES
+                         if m.split(".")[1] == pkg}, pkg
+
+
+_WORKER_PROBE = r"""
+import os, sys
+import ceph_tpu_torch.load.load_worker
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ceph_tpu" or m.startswith("ceph_tpu."))
+import torch
+print(repr(os.environ.get("CUDA_VISIBLE_DEVICES")),
+      torch.cuda.device_count(), torch.cuda.is_initialized(),
+      ",".join(bad))
+"""
+
+
+def test_load_workers_spawn_as_the_port_with_no_card(monkeypatch):
+    """The generator spawns ``python -m ceph_tpu_torch.load.load_worker``
+    with CUDA_VISIBLE_DEVICES empty; a child started with that argv's
+    interpreter and env imports the worker with neither jax nor
+    ceph_tpu, and its torch sees no card."""
+    from ceph_tpu_torch.load import generator
+    from ceph_tpu_torch.load.profiles import LegSpec
+
+    spawned = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_popen(argv, **kw):
+        spawned.append((argv, kw))
+        raise Stop
+
+    monkeypatch.setattr(generator.subprocess, "Popen", fake_popen)
+    gen = generator.LoadGenerator(
+        "127.0.0.1:1", "pool", 4,
+        [LegSpec("steady", "small_mixed", 0.1, concurrency=2)], procs=1)
+    with pytest.raises(Stop):
+        gen.spawn()
+    monkeypatch.undo()  # the module's Popen is subprocess's own
+    (argv, kw), = spawned
+    assert argv[:3] == [sys.executable, "-m",
+                        "ceph_tpu_torch.load.load_worker"]
+    env = kw["env"]
+    assert env["CUDA_VISIBLE_DEVICES"] == ""
+    assert kw["cwd"] == REPO
+    out = subprocess.run([argv[0], "-c", _WORKER_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["''", "0", "False"]
