@@ -71,9 +71,15 @@ fold into one ``repair_chunk_folded`` pass (``repair``).  A sub-chunk
 flush's csums are a host CRC32C sweep over its host parity, as in the
 JAX package.
 
-Not in the port yet: the reference's mesh fan-out (``shard``; a codec
-with a fan-out above 1 raises at construction).  A codec without fold
-kinds passes through.
+Mesh fan-out: when a codec resolves a device fan-out above 1
+(``shard`` / the ``ec_shard`` option, MatrixErasureCode.shard_devices),
+a flush's folded ``(k, sum L)`` launch shards its length axis over a
+flat mesh of logical devices (parallel/distributed.py): the stripe count
+caps the fan-out and pads to a multiple of it (``shard_pad``), so each
+device owns whole stripes, and a checksummed flush of one length takes
+the mesh-sharded fused op.  Sharded launches are counted in
+``stats["sharded_launches"]`` and the ``ec_batch_sharded_*`` counters.
+A codec without fold kinds passes through.
 
 Tracing: an op submitted with ``trace=(tracer, parent_ctx)`` gets an
 ``ec-batch-wait`` span covering queued -> flushed, and each flush emits
@@ -111,8 +117,7 @@ FLUSH_IDLE = "idle"
 
 #: perf counters the batcher registers on the registry it is handed —
 #: ALWAYS registered (zeroed) even when batching is off/pass-through, so
-#: `perf dump` exposes one stable schema (the sharded ones stay 0 until
-#: the multi-GPU fan-out is ported)
+#: `perf dump` exposes one stable schema
 COUNTERS = ("ec_batch_launches", "ec_batch_coalesced_ops",
             "ec_batch_bytes", "ec_batch_flush_window",
             "ec_batch_flush_size", "ec_batch_flush_idle",
@@ -148,6 +153,18 @@ def _pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+def shard_pad(n2: int, n_shard: int) -> tuple[int, int]:
+    """(effective fan-out, padded stripe count) a flush uses for a
+    pow2-padded stripe count ``n2`` on an ``n_shard``-device pool: the
+    fan-out caps at the stripe count (a 2-op flush on an 8-device pool
+    shards 2 ways instead of inflating the fold 4x with empty slots),
+    then the count rounds up to a multiple of the fan-out so sum L
+    splits into whole per-device slices.  ONE definition shared by the
+    flush paths and the bench warm-up loops."""
+    ns = max(1, min(n_shard, n2))
+    return ns, -(-n2 // ns) * ns
 
 
 class _PendingOp:
@@ -548,16 +565,16 @@ class ECBatcher:
 
     @staticmethod
     def _trace_flush_done(fspan, *, bucket: int, src_cols: int,
-                          padded_cols: int) -> None:
+                          padded_cols: int, n_shard: int) -> None:
         """Close the flush span with the launch-shape tags: bucket
-        length and pad-waste ratio (padded columns that carried no op
-        bytes)."""
+        length, pad-waste ratio (padded columns that carried no op
+        bytes), and the device fan-out."""
         if fspan is None:
             return
         waste = (1.0 - src_cols / padded_cols) if padded_cols else 0.0
         fspan.tag("bucket", bucket)
         fspan.tag("pad_waste", round(waste, 4))
-        fspan.tag("n_shard", 1)
+        fspan.tag("n_shard", n_shard)
         fspan.finish()
 
     # ------------------------------------------------- submit/wait machinery
@@ -615,7 +632,8 @@ class ECBatcher:
         return sp.trace_id if sp is not None and sp.sampled else None
 
     def _complete(self, ops: list[_PendingOp], src_bytes: int,
-                  reason: str) -> None:
+                  reason: str, n_shard: int = 1,
+                  shard_bytes: int = 0) -> None:
         p = self._perf
         if p is not None and ops:
             # wait (queued -> taken) per op, flush (taken -> done) once
@@ -635,12 +653,21 @@ class ECBatcher:
             if t0:
                 p.hinc("ec_batch_flush_us", max(0.0, now - t0) * 1e6,
                        exemplar=lead_ex)
-        self._account(len(ops), src_bytes, reason)
+        self._account(len(ops), src_bytes, reason, n_shard, shard_bytes)
         self._adapt(ops)
         with self._cv:
             for o in ops:
                 o.done = True
             self._cv.notify_all()
+
+    def _shard_fanout(self, codec, n2: int) -> tuple[int, int]:
+        """(fan-out, padded stripe count) for this flush — the codec's
+        resolved shard count run through shard_pad (capped at the
+        stripe count, count rounded up to the fan-out)."""
+        sd = getattr(codec, "shard_devices", None)
+        if sd is None:
+            return 1, n2
+        return shard_pad(n2, sd())
 
     def _adapt(self, ops: list[_PendingOp]) -> None:
         """One controller step per flush: EWMA the launch's op count,
@@ -693,12 +720,15 @@ class ECBatcher:
         except BaseException as e:  # surfaced to the op's own waiter
             op.error = e
 
-    def _account(self, n_ops: int, src_bytes: int, reason: str) -> None:
+    def _account(self, n_ops: int, src_bytes: int, reason: str,
+                 n_shard: int = 1, shard_bytes: int = 0) -> None:
         with self._cv:
             self.stats["launches"] += 1
             self.stats["ops"] += n_ops
             self.stats["bytes"] += src_bytes
             self.stats[reason] += 1
+            if n_shard > 1:
+                self.stats["sharded_launches"] += 1
         p = self._perf
         if p is not None:
             p.inc("ec_batch_launches")
@@ -707,6 +737,10 @@ class ECBatcher:
             p.inc(f"ec_batch_flush_{reason}")
             p.hinc("ec_batch_ops_per_launch", n_ops)
             p.hinc("ec_batch_bytes_per_launch", src_bytes)
+            if n_shard > 1:
+                p.inc("ec_batch_sharded_launches")
+                p.hinc("ec_batch_sharded_devices_per_launch", n_shard)
+                p.hinc("ec_batch_sharded_shard_bytes", shard_bytes)
 
     # ------------------------------------------------------- pass-through
     def _passthrough_encode(self, codec, data_chunks, with_csums,
@@ -843,21 +877,26 @@ class ECBatcher:
         codec = ops[0].codec
         k = codec.k
         src_bytes = sum(_nbytes(o.streams) for o in ops)
+        ns, shard_bytes = 1, 0
         padded_cols = 0
         fspan = self._trace_flush(sig, ops, reason)
         try:
-            n2 = _pow2(len(ops))  # stripe-count padding: bounded shapes
+            # stripe-count padding (bounded shapes), then rounded to the
+            # fan-out so every device owns whole stripes
+            ns, n2 = self._shard_fanout(codec, _pow2(len(ops)))
             # fused needs one EXACT chunk length across the launch (the
             # device CRC is per whole chunk — a padded chunk would
             # digest its padding); the shared length need not be a
-            # power of two
+            # power of two.  A sharded pool gets the mesh-sharded fused
+            # op (each device owns whole chunks, so its digests are the
+            # native sweep's)
             L0 = ops[0].length
             op_fn = None
             if (sig[5]  # every op in the group wants csums
                     and getattr(codec, "_backend", None) == "torch"
                     and all(o.length == L0 for o in ops)
                     and L0 % 4 == 0):
-                op_fn = codec._csum_op_if_ready(L0)
+                op_fn = codec._csum_op_if_ready(L0, n_shard=ns)
             if op_fn is not None:
                 # ONE flush: parity + per-chunk CRC32C for every stripe
                 # in the launch (csums (k+m, n2), one column per stripe)
@@ -876,11 +915,13 @@ class ECBatcher:
                             [L0] * len(ops), L0, k, n2)
                     dev_parity, dev_csums = codec._profiled_launch(
                         op_fn, folded,
-                        f"csum/{codec.m}x{k}/L{L0}x{n2 * L0}")
+                        f"csum/{codec.m}x{k}/L{L0}x{n2 * L0}"
+                        + (f"/s{ns}" if ns > 1 else ""))
                     # parity AND csums leave the device in the flush's
                     # one metered copy
                     parity, csums = self._sync_flush(
                         codec, (dev_parity, dev_csums), fspan, sig)
+                shard_bytes = k * n2 * L0 // ns if ns > 1 else 0
                 for i, o in enumerate(ops):
                     # copy out of the launch buffer: a retained per-op
                     # result must not pin the whole (m, n2*L) fold
@@ -906,7 +947,8 @@ class ECBatcher:
                             folded = torch.from_numpy(folded).to(
                                 codec.device)
                     dev_parity = codec._matmul_device(
-                        codec.matrix, folded, donate=owned)
+                        codec.matrix, folded, n_shard=ns,
+                        donate=owned and ns == 1)
                     outs, order = (dev_parity,), []
                     if on_device:
                         # digests the fused op could not give (several
@@ -918,6 +960,7 @@ class ECBatcher:
                             outs += (dev_csums,)
                     synced = self._sync_flush(codec, outs, fspan, sig)
                     parity = synced[0]
+                shard_bytes = k * n2 * bucket // ns if ns > 1 else 0
                 for i, o in enumerate(ops):
                     o.parity = \
                         parity[:, i * bucket: i * bucket + o.length].copy()
@@ -937,8 +980,8 @@ class ECBatcher:
             self._trace_flush_done(
                 fspan, bucket=bucket,
                 src_cols=sum(o.length for o in ops),
-                padded_cols=padded_cols)
-            self._complete(ops, src_bytes, reason)
+                padded_cols=padded_cols, n_shard=ns)
+            self._complete(ops, src_bytes, reason, ns, shard_bytes)
 
     def _flush_decode(self, sig: tuple, ops: list[_PendingOp],
                       reason: str) -> None:
@@ -947,10 +990,11 @@ class ECBatcher:
         avail, want = sig[5], list(sig[6])
         src_bytes = sum(sum(_nbytes(c) for c in o.chunks.values())
                         for o in ops)
+        ns, shard_bytes = 1, 0
         padded_cols = 0
         fspan = self._trace_flush(sig, ops, reason)
         try:
-            n2 = _pow2(len(ops))
+            ns, n2 = self._shard_fanout(codec, _pow2(len(ops)))
             padded_cols = n2 * bucket
             if getattr(codec, "_backend", None) == "torch":
                 # device-resident plane: the survivor stacks (staged at
@@ -978,9 +1022,11 @@ class ECBatcher:
                             host[:, len(ops) * bucket:] = 0
                         folded = torch.from_numpy(host).to(codec.device)
                     out_dev = codec.decode_folded_device(
-                        want, avail_ids, folded)
+                        want, avail_ids, folded, n_shard=ns)
                     (out_np,) = self._sync_flush(codec, (out_dev,),
                                                  fspan, sig)
+                shard_bytes = (len(avail_ids) * n2 * bucket // ns
+                               if ns > 1 else 0)
                 for i, o in enumerate(ops):
                     o.decoded = {
                         s: out_np[j, i * bucket: i * bucket + o.length
@@ -993,7 +1039,9 @@ class ECBatcher:
                     for s, c in o.chunks.items():
                         flat[s][i * bucket: i * bucket + o.length] = \
                             _host(c)
-                out = codec.decode_chunks(want, flat)
+                out = codec.decode_chunks(want, flat, n_shard=ns)
+                shard_bytes = (sum(c.nbytes for c in flat.values())
+                               // ns if ns > 1 else 0)
                 for i, o in enumerate(ops):
                     # copy out of the launch buffer (see _flush_encode)
                     o.decoded = {
@@ -1006,8 +1054,8 @@ class ECBatcher:
             self._trace_flush_done(
                 fspan, bucket=bucket,
                 src_cols=sum(o.length for o in ops),
-                padded_cols=padded_cols)
-            self._complete(ops, src_bytes, reason)
+                padded_cols=padded_cols, n_shard=ns)
+            self._complete(ops, src_bytes, reason, ns, shard_bytes)
 
     # CLAY (any codec of fold kind "subchunk") folds at plane
     # granularity: the ops' exact-L segments fold on the HOST (the plane
@@ -1020,10 +1068,11 @@ class ECBatcher:
         L = sig[-1]
         codec = ops[0].codec
         src_bytes = sum(_nbytes(o.streams) for o in ops)
+        ns, shard_bytes = 1, 0
         padded_cols = 0
         fspan = self._trace_flush(sig, ops, reason)
         try:
-            n2 = _pow2(len(ops))
+            ns, n2 = self._shard_fanout(codec, _pow2(len(ops)))
             padded_cols = n2 * L
             with self._launch_ctx(codec, ops):
                 folded = self._fold_host_rows(
@@ -1032,7 +1081,9 @@ class ECBatcher:
                 # zero stripe slots encode to zero parity (a linear
                 # code: zero data, zero uncoupled planes, zero parity),
                 # so the pow2 padding slices away clean
-                parity = codec.encode_chunks_folded(folded, n2, L)
+                parity = codec.encode_chunks_folded(folded, n2, L,
+                                                    n_shard=ns)
+            shard_bytes = folded.nbytes // ns if ns > 1 else 0
             for i, o in enumerate(ops):
                 o.parity = parity[:, i * L: (i + 1) * L].copy()
                 if o.with_csums:
@@ -1047,8 +1098,8 @@ class ECBatcher:
         finally:
             self._trace_flush_done(
                 fspan, bucket=L, src_cols=sum(o.length for o in ops),
-                padded_cols=padded_cols)
-            self._complete(ops, src_bytes, reason)
+                padded_cols=padded_cols, n_shard=ns)
+            self._complete(ops, src_bytes, reason, ns, shard_bytes)
 
     def _flush_decode_subchunk(self, sig: tuple, ops: list[_PendingOp],
                                reason: str) -> None:
@@ -1058,10 +1109,11 @@ class ECBatcher:
         want = list(sig[6])
         src_bytes = sum(sum(_nbytes(c) for c in o.chunks.values())
                         for o in ops)
+        ns, shard_bytes = 1, 0
         padded_cols = 0
         fspan = self._trace_flush(sig, ops, reason)
         try:
-            n2 = _pow2(len(ops))
+            ns, n2 = self._shard_fanout(codec, _pow2(len(ops)))
             padded_cols = n2 * L
             with self._launch_ctx(codec, ops):
                 folded = np.empty((len(avail), n2 * L), dtype=np.uint8)
@@ -1072,7 +1124,8 @@ class ECBatcher:
                 if len(ops) < n2:
                     folded[:, len(ops) * L:] = 0
                 out = codec.decode_chunks_folded(want, avail, folded,
-                                                 n2, L)
+                                                 n2, L, n_shard=ns)
+            shard_bytes = folded.nbytes // ns if ns > 1 else 0
             for i, o in enumerate(ops):
                 o.decoded = {
                     s: out[j, i * L: (i + 1) * L].copy()
@@ -1083,8 +1136,8 @@ class ECBatcher:
         finally:
             self._trace_flush_done(
                 fspan, bucket=L, src_cols=sum(o.length for o in ops),
-                padded_cols=padded_cols)
-            self._complete(ops, src_bytes, reason)
+                padded_cols=padded_cols, n_shard=ns)
+            self._complete(ops, src_bytes, reason, ns, shard_bytes)
 
     def _flush_repair(self, sig: tuple, ops: list[_PendingOp],
                       reason: str) -> None:
@@ -1096,11 +1149,13 @@ class ECBatcher:
         lost = sig[2]
         src_bytes = sum(sum(c.nbytes for c in o.chunks.values())
                         for o in ops)
+        ns = 1
         fspan = self._trace_flush(sig, ops, reason)
         try:
+            ns, _n2 = self._shard_fanout(codec, len(ops))
             with self._launch_ctx(codec, ops):
                 outs = codec.repair_chunk_folded(
-                    lost, [o.chunks for o in ops], L)
+                    lost, [o.chunks for o in ops], L, n_shard=ns)
             for o, chunk in zip(ops, outs):
                 o.decoded = chunk
         except BaseException as e:
@@ -1109,8 +1164,9 @@ class ECBatcher:
         finally:
             self._trace_flush_done(
                 fspan, bucket=L, src_cols=len(ops) * L,
-                padded_cols=len(ops) * L)
-            self._complete(ops, src_bytes, reason)
+                padded_cols=len(ops) * L, n_shard=ns)
+            self._complete(ops, src_bytes, reason, ns,
+                           src_bytes // ns if ns > 1 else 0)
 
     def _flush_verify(self, sig: tuple, ops: list[_PendingOp],
                       reason: str) -> None:
@@ -1138,7 +1194,8 @@ class ECBatcher:
                 o.error = e
         finally:
             self._trace_flush_done(fspan, bucket=sig[-1],
-                                   src_cols=n_rows, padded_cols=n_rows)
+                                   src_cols=n_rows, padded_cols=n_rows,
+                                   n_shard=1)
             self._complete(ops, src_bytes, reason)
 
 

@@ -221,14 +221,16 @@ class GeneralMatrixCode(MatrixErasureCode):
             self._fold_cache[key] = R
         return R
 
-    def decode_folded_device(self, want, avail, stacked):
+    def decode_folded_device(self, want, avail, stacked, *,
+                             n_shard: int = 1):
         """Folded decode over the fold_rows() survivor stack: ONE
         region matmul with the cached combination matrix — a tensor on
         the codec's device on the torch backend (the caller carves
         waiters out of one bulk copy back), numpy elsewhere."""
         rows = [i for i in avail if i < self.chunk_count]
         R = self._fold_matrix(tuple(want), tuple(rows))
-        return self._matmul_device(R, stacked[: len(rows)])
+        return self._matmul_device(R, stacked[: len(rows)],
+                                   n_shard=n_shard)
 
     def minimum_to_decode(self, want, available):
         want_s, avail_s = set(want), set(available)
@@ -247,8 +249,8 @@ class GeneralMatrixCode(MatrixErasureCode):
                 f"cannot decode {sorted(want_s)} from {sorted(avail_s)}")
         return sorted(set(rows) | (want_s & avail_s))
 
-    def decode_chunks(self, want: Sequence[int],
-                      chunks: ChunkMap) -> ChunkMap:
+    def decode_chunks(self, want: Sequence[int], chunks: ChunkMap, *,
+                      n_shard: int = 1) -> ChunkMap:
         avail = [i for i in chunks if i < self.chunk_count]
         missing = [i for i in want if i not in chunks]
         if len(missing) == 1:
@@ -267,7 +269,7 @@ class GeneralMatrixCode(MatrixErasureCode):
         D = gf256.gf_mat_inv(sub)
         stack = np.stack([np.ascontiguousarray(chunks[i], dtype=np.uint8)
                           for i in rows])
-        data = self._matmul(D, stack)
+        data = self._matmul(D, stack, n_shard=n_shard)
         out: ChunkMap = {}
         for i in want:
             if i in chunks:
@@ -275,5 +277,6 @@ class GeneralMatrixCode(MatrixErasureCode):
             elif i < self.k:
                 out[i] = data[i]
             else:
-                out[i] = self._matmul(self.full[[i]], data)[0]
+                out[i] = self._matmul(self.full[[i]], data,
+                                      n_shard=n_shard)[0]
         return out

@@ -11,9 +11,12 @@ LRU, ErasureCodeIsa.cc:513-563).  ``backend=auto`` resolves to
 
 The device is the profile key ``device`` (default ``cuda``).  A codec
 asked for ``cuda`` on a process with no card raises at construction; it
-never carries on on the CPU.  The profile key ``shard`` (the reference's
-device fan-out) resolves to one device; a fan-out above 1 raises until
-the multi-GPU slice is ported.
+never carries on on the CPU.  The profile key ``shard`` is the device
+fan-out of folded launches (shard_devices): a fan-out above 1 splits a
+launch's length axis over a flat mesh of the devices of the codec's
+kind (parallel/distributed.make_folded_matmul) — every card, or the
+logical devices parallel.mesh.force_devices set on one — and a mesh
+that cannot be built raises (the reference falls back to one device).
 
 Checksummed writes (``encode_chunks_with_csums`` and the batcher's fused
 flush) run ``_csum_op``: the region kernel pinned for the encode matrix
@@ -106,7 +109,7 @@ class MatrixErasureCode(ErasureCode):
         self._backend = _pick_backend(self.profile.get("backend", "auto"))
         self.device = (resolve_device(self.profile.get("device", "cuda"))
                        if self._backend == "torch" else None)
-        self.shard_devices()  # a fan-out above 1 raises here
+        self.shard_devices()  # a malformed ``shard`` raises here
         # kernel realization for torch-backend region math: profile key
         # ``kernel`` pins one of ops/ec_kernels.KERNELS, ``auto``
         # (default) lets the per-signature tuner decide — racing the
@@ -242,8 +245,10 @@ class MatrixErasureCode(ErasureCode):
                                 mode="pinned", skipped=skipped)
 
     @staticmethod
-    def _matmul_sig(M: np.ndarray, L: int, kernel: str) -> str:
-        return f"matmul/{M.shape[0]}x{M.shape[1]}/L{L}/{kernel}"
+    def _matmul_sig(M: np.ndarray, L: int, kernel: str,
+                    n_shard: int = 1) -> str:
+        return (f"matmul/{M.shape[0]}x{M.shape[1]}/L{L}"
+                + (f"/s{n_shard}" if n_shard > 1 else "") + f"/{kernel}")
 
     #: launches a race times for each candidate after its first one
     RACE_TIMED_LAUNCHES = 3
@@ -253,13 +258,19 @@ class MatrixErasureCode(ErasureCode):
     #: event: the window then holds the kernels alone
     RACE_LEAD_CYCLES = 400_000
 
-    def _race_matmul(self, M: np.ndarray, rows):
+    def _race_matmul(self, M: np.ndarray, rows, n_shard: int = 1):
         """First launch of an unpinned auto signature: run every viable
         candidate on the real fold (a first launch, then
         RACE_TIMED_LAUNCHES timed ones each), pin the one whose lower
         median time is the least, and return its output.  Only
         ``kernel_supports`` decides a skip: a launch or CUDA error
-        propagates."""
+        propagates.  ``n_shard > 1`` races each candidate's sharded op
+        (every logical device runs the candidate on its slice; the
+        timed window spans the whole fan-out, joined on this stream),
+        with a host fold staged over the mesh once, before the race.
+        The reference drops ``pallas`` from a sharded race (it lowers to
+        the ``xla`` graph inside a shard_map body); here each candidate
+        is its own kernel on every slice, so all of them race."""
         L = int(rows.shape[-1])
         bucket = _shape_bucket(L)
         cands, skipped = [], []
@@ -275,9 +286,15 @@ class MatrixErasureCode(ErasureCode):
                 f"{self.device} (skipped {skipped})")
         n = self.RACE_TIMED_LAUNCHES
         best = None  # (time, kernel, out)
+        ops = {k: (self._matmul_sharded(M, n_shard, kernel=k)
+                   if n_shard > 1 else (self._torch_matmul(M, kernel=k),
+                                        None)) for k in cands}
+        if n_shard > 1:
+            from ..parallel.distributed import stage_folded
+            rows = stage_folded(rows, ops[cands[0]][1])
         for k in cands:
-            sig = self._matmul_sig(M, L, k)
-            op = self._torch_matmul(M, kernel=k)
+            sig = self._matmul_sig(M, L, k, n_shard)
+            op = ops[k][0]
             out = self._profiled_launch(op, rows, sig)  # + device tables
             times = []
             for _ in range(n):
@@ -299,31 +316,65 @@ class MatrixErasureCode(ErasureCode):
                     in self._kernel_picks.items()}
 
     def shard_devices(self) -> int:
-        """Resolved device fan-out for folded launches: 1.  Profile key
-        ``shard``: ``off`` (``false``, ``no``, ``0``) means one device;
-        ``auto`` (or unset; ``on``, ``true``, ``yes``) means every card,
-        as the reference engages every accelerator, and one device on
-        the CPU or the numpy backend; an integer N means N devices.  A
-        fan-out above 1 raises ErasureCodeError — the multi-GPU fan-out
-        is not ported, and such a pool is never served by one device
-        without saying so (``shard=off`` asks for one)."""
-        mode = str(self.profile.get("shard", "auto")).lower()
-        if mode in ("off", "false", "no", "0"):
+        """Resolved device fan-out for folded launches (1 = one device),
+        as the reference resolves it.  Profile key ``shard`` (seeded
+        from the ``ec_shard`` option by the OSD): ``off`` (``false``,
+        ``no``, ``0``) -> 1; an integer N -> min(N, devices of the
+        codec's kind); ``auto`` (or unset; ``on``, ``true``, ``yes``) ->
+        every device of a card and 1 on the CPU.  The devices are
+        parallel.mesh.devices: the cards, or the logical devices
+        force_devices set on the first.  Non-torch backends never fan
+        out.  A value that is none of these raises ErasureCodeError (the
+        reference resolves it to 1)."""
+        if self._backend != "torch":
             return 1
-        if mode in ("auto", "on", "true", "yes"):
-            device = getattr(self, "device", None)
-            on_card = device is not None and device.type == "cuda"
-            n = torch.cuda.device_count() if on_card else 1
-        else:
+        cached = getattr(self, "_shard_devices_cached", None)
+        if cached is not None:
+            return cached
+        from ..parallel.mesh import devices
+        mode = str(self.profile.get("shard", "auto")).lower()
+        n = 1
+        if mode not in ("off", "false", "no", "0"):
+            ndev = len(devices(self.device.type))
+            if mode in ("auto", "on", "true", "yes"):
+                n = ndev if self.device.type == "cuda" else 1
+            else:
+                try:
+                    n = min(int(mode), ndev)
+                except ValueError as e:
+                    raise ErasureCodeError(f"bad shard {mode!r}") from e
+        n = max(1, n)
+        self._shard_devices_cached = n
+        return n
+
+    def _matmul_sharded(self, M: np.ndarray, n_shard: int,
+                        kernel: str = "auto"):
+        """(op, mesh): the folded region multiply fanned over a flat
+        mesh of ``n_shard`` devices of the codec's kind
+        (parallel/distributed.make_folded_matmul), each device running
+        ``kernel`` on its column slice, the result assembled on the
+        codec's device.  Cached in the op LRU beside the single-device
+        ops, keyed by (kernel, fan-out, matrix); the mesh rides along so
+        the caller can stage a host fold straight into its sharding.  A
+        mesh that cannot be built raises ErasureCodeError (the reference
+        returns None and falls back to one device)."""
+        def build():
+            from ..parallel.distributed import make_folded_matmul
+            from ..parallel.mesh import devices, make_flat_mesh
             try:
-                n = int(mode)
-            except ValueError as e:
-                raise ErasureCodeError(f"bad shard {mode!r}") from e
-        if n > 1:
-            raise ErasureCodeError(
-                f"shard={mode} asks for {n} devices: the multi-GPU fan-out "
-                "is not ported (shard=off serves the pool from one)")
-        return 1
+                mesh = make_flat_mesh(n_shard,
+                                      devices=devices(self.device.type))
+            except (ValueError, RuntimeError) as e:
+                raise ErasureCodeError(
+                    f"no {n_shard}-device mesh of {self.device.type}: "
+                    f"{e}") from e
+            fn = make_folded_matmul(M, mesh, kernel=kernel)
+            return (lambda rows: fn(rows).assemble(self.device)), mesh
+
+        key = (b"shard" + kernel.encode() + b":"
+               + n_shard.to_bytes(4, "little") + M.tobytes()
+               + bytes(M.shape))
+        return self._op_cached(key, build)
 
     # -- batcher fold protocol ---------------------------------------------
     # The ECBatcher folds concurrent same-signature ops into one
@@ -364,21 +415,38 @@ class MatrixErasureCode(ErasureCode):
                 Flags.PARTIAL_WRITE_OPTIMIZATION)
 
     # -- region multiply through the selected backend ----------------------
-    def _matmul_device(self, M: np.ndarray, rows, *, donate: bool = False):
+    def _matmul_device(self, M: np.ndarray, rows, *, n_shard: int = 1,
+                       donate: bool = False):
         """Backend-resident region multiply: on the torch backend the
         result STAYS a tensor on the codec's device (no host copy), so
         callers folding many stripes into one launch pay one host copy
         for the whole batch.  The native and numpy backends return numpy.
 
+        ``n_shard > 1`` fans the launch over a flat mesh, length axis
+        sharded (_matmul_sharded), when the column count splits into
+        whole uint32 lanes per device; anything else takes the
+        single-device launch, byte-identical.  The sharded launch rides
+        the kernel pinned for (matrix, bucket), racing the candidates'
+        sharded ops on an unpinned signature.
+
         ``donate`` is accepted for the JAX package's signature and
         ignored: the port does not alias inputs yet."""
         if self._backend == "torch":
+            L = int(rows.shape[-1])
+            if n_shard > 1 and L % (4 * n_shard) == 0:
+                pick = self._kernel_pick(M, L)
+                if pick is None:
+                    return self._race_matmul(M, rows, n_shard=n_shard)
+                op, mesh = self._matmul_sharded(M, n_shard, kernel=pick)
+                from ..parallel.distributed import stage_folded
+                return self._profiled_launch(
+                    op, stage_folded(rows, mesh),
+                    self._matmul_sig(M, L, pick, n_shard))
             if isinstance(rows, np.ndarray):
                 # one host->device copy, outside the timed launches (a
                 # race would otherwise time the copy once per candidate)
                 rows = torch.from_numpy(np.ascontiguousarray(
                     rows, dtype=np.uint8)).to(self.device)
-            L = int(rows.shape[-1])
             pick = self._kernel_pick(M, L)
             if pick is None:
                 return self._race_matmul(M, rows)
@@ -459,7 +527,8 @@ class MatrixErasureCode(ErasureCode):
         return staging.fetch_recorded(devs, sig=sig)
 
     def decode_folded_device(self, want: Sequence[int],
-                             avail: Sequence[int], stacked):
+                             avail: Sequence[int], stacked, *,
+                             n_shard: int = 1):
         """Device-resident folded decode: ``stacked`` is a
         ``(len(avail), N)`` uint8 tensor on the codec's device whose rows
         are the survivor chunks in ``avail`` (sorted) order.  Returns a
@@ -468,7 +537,8 @@ class MatrixErasureCode(ErasureCode):
 
         Math is identical to decode_chunks (same decode-matrix cache,
         same single-row fast path, same parity-from-data product), so
-        the bytes are identical to the per-op host path."""
+        the bytes are identical to the per-op host path.  ``n_shard``
+        fans each product out as _matmul_device does."""
         avail = [i for i in avail if i < self.chunk_count]
         if len(avail) < self.k:
             raise ErasureCodeError(
@@ -490,22 +560,26 @@ class MatrixErasureCode(ErasureCode):
         else:
             D = self._get_decode_matrix(use)
             if want_parity or len(missing_data) > 1:
-                data_full = self._matmul_device(D, stack)
+                data_full = self._matmul_device(D, stack, n_shard=n_shard)
                 for i in want_data:
                     rows[i] = data_full[i]
             else:
-                sub = self._matmul_device(D[want_data], stack)
+                sub = self._matmul_device(D[want_data], stack,
+                                          n_shard=n_shard)
                 for r, i in enumerate(want_data):
                     rows[i] = sub[r]
         if want_parity:
             par = self._matmul_device(
-                self.matrix[[i - self.k for i in want_parity]], data_full)
+                self.matrix[[i - self.k for i in want_parity]], data_full,
+                n_shard=n_shard)
             for r, i in enumerate(want_parity):
                 rows[i] = par[r]
         return torch.stack([torch.as_tensor(rows[i]) for i in want])
 
-    def _matmul(self, M: np.ndarray, rows: np.ndarray) -> np.ndarray:
-        return self.host_sync(self._matmul_device(M, rows))
+    def _matmul(self, M: np.ndarray, rows: np.ndarray, *,
+                n_shard: int = 1) -> np.ndarray:
+        return self.host_sync(self._matmul_device(M, rows,
+                                                  n_shard=n_shard))
 
     def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:
         data_chunks = _as_host(data_chunks)
@@ -553,63 +627,96 @@ class MatrixErasureCode(ErasureCode):
         return parity, _host_csums(
             np.concatenate([data_chunks, parity], axis=0))
 
-    def _csum_op(self, nbytes: int):
+    def _csum_op(self, nbytes: int, n_shard: int = 1):
         """Fused encode+CRC32C op for chunk length ``nbytes``:
         fn((k, batch*nbytes) data, numpy or a tensor) -> (parity
         (m, batch*nbytes), csums (k+m, batch) uint32) as tensors on the
         codec's device — parity and every per-chunk digest leave the
-        device together.  Cached per (matrix, nbytes) beside the region
-        ops; the region kernel is resolved per launch width
-        (_csum_graph_kernel) and its graph cached per kernel."""
+        device together.  Cached per (matrix, nbytes, fan-out) beside
+        the region ops; the region kernel is resolved per launch width
+        (_csum_graph_kernel) and its graph cached per kernel.
+
+        ``n_shard > 1`` builds the mesh-sharded op
+        (parallel/distributed.make_folded_csum): the length axis, and
+        with it the per-chunk CRC, fans over a flat mesh, each device
+        owning whole chunks (the caller pads the stripe count to a
+        multiple of the fan-out).  A mesh that cannot be built raises
+        ErasureCodeError (the reference returns None and sweeps the
+        CRCs on the host)."""
         from ..models.stripe_codec import StripeCodec
 
         graphs: dict[str, object] = {}
         lock = threading.Lock()
+        mesh = None
+        if n_shard > 1:
+            from ..parallel.mesh import devices, make_flat_mesh
+            try:
+                mesh = make_flat_mesh(n_shard,
+                                      devices=devices(self.device.type))
+            except (ValueError, RuntimeError) as e:
+                raise ErasureCodeError(
+                    f"no {n_shard}-device mesh of {self.device.type}: "
+                    f"{e}") from e
+
+        def graph(kern):
+            if mesh is not None:
+                from ..parallel.distributed import make_folded_csum
+                fn = make_folded_csum(self.k, self.m, self.matrix, nbytes,
+                                      mesh, kernel=kern)
+
+                def sharded(data):
+                    par, cs = fn(data)
+                    return (par.assemble(self.device),
+                            cs.assemble(self.device))
+
+                return sharded
+            codec = StripeCodec.__new__(StripeCodec)
+            codec.k, codec.m = self.k, self.m
+            codec.matrix = self.matrix
+            return codec.encode_csum_graph(nbytes, kernel=kern)
 
         def op(data):
-            if isinstance(data, np.ndarray):
+            if isinstance(data, np.ndarray) and mesh is None:
                 data = torch.from_numpy(np.ascontiguousarray(
                     data, dtype=np.uint8)).to(self.device)
-            kern = self._csum_graph_kernel(data)
+            kern = self._csum_graph_kernel(data, n_shard)
             with lock:
                 fn = graphs.get(kern)
                 if fn is None:
-                    codec = StripeCodec.__new__(StripeCodec)
-                    codec.k, codec.m = self.k, self.m
-                    codec.matrix = self.matrix
-                    fn = graphs[kern] = codec.encode_csum_graph(
-                        nbytes, kernel=kern)
+                    fn = graphs[kern] = graph(kern)
             return fn(data)
 
-        return self._op_cached(self._csum_key(nbytes), lambda: op)
+        return self._op_cached(self._csum_key(nbytes, n_shard), lambda: op)
 
-    def _csum_graph_kernel(self, data) -> str:
+    def _csum_graph_kernel(self, data, n_shard: int = 1) -> str:
         """Region kernel the fused op runs for the encode matrix at
         ``data``'s width (``data``: the k data rows, or the (k+m, N)
         stack they head): the kernel pinned for (matrix, width bucket)
         — an explicit profile pin, an earlier race, or, for an unpinned
         signature on the card, a race run now on the data rows (its
-        parity is dropped; the fused op launches the winner).  On the CPU
-        the pin is the plain version."""
+        parity is dropped; the fused op launches the winner), of the
+        sharded ops when ``n_shard > 1``.  On the CPU the pin is the
+        plain version."""
         M, L = self.matrix, int(data.shape[-1])
         pick = self._kernel_pick(M, L)
         if pick is None:
-            self._race_matmul(M, data[: self.k])
+            self._race_matmul(M, data[: self.k], n_shard=n_shard)
             pick = self._kernel_pick(M, L)
         return pick
 
-    def _csum_key(self, nbytes: int) -> bytes:
-        """Op-LRU key of the fused encode+CRC op for this chunk length —
-        ONE definition."""
-        return b"csum:" + self.matrix.tobytes() + nbytes.to_bytes(8,
-                                                                  "little")
+    def _csum_key(self, nbytes: int, n_shard: int = 1) -> bytes:
+        """Op-LRU key of the fused encode+CRC op for this chunk length
+        and fan-out — ONE definition."""
+        return (b"csum:" + self.matrix.tobytes()
+                + nbytes.to_bytes(8, "little")
+                + n_shard.to_bytes(4, "little"))
 
-    def _csum_op_if_ready(self, nbytes: int):
+    def _csum_op_if_ready(self, nbytes: int, n_shard: int = 1):
         """The fused op for chunk length ``nbytes``, at once on every
         device: the port compiles nothing per shape, so there is nothing
         to warm (the reference returns it at once only on a TPU and warms
         it in the background elsewhere)."""
-        return self._csum_op(nbytes)
+        return self._csum_op(nbytes, n_shard)
 
     def _get_decode_matrix(self, available: Sequence[int]) -> np.ndarray:
         key = tuple(available[: self.k])
@@ -628,8 +735,8 @@ class MatrixErasureCode(ErasureCode):
             self._decode_cache[key] = hit
         return hit
 
-    def decode_chunks(self, want: Sequence[int],
-                      chunks: ChunkMap) -> ChunkMap:
+    def decode_chunks(self, want: Sequence[int], chunks: ChunkMap, *,
+                      n_shard: int = 1) -> ChunkMap:
         avail = sorted(i for i in chunks if i < self.chunk_count)
         if len(avail) < self.k:
             raise ErasureCodeError(
@@ -653,18 +760,20 @@ class MatrixErasureCode(ErasureCode):
             else:
                 D = self._get_decode_matrix(use)
                 if want_parity or len(missing_data) > 1:
-                    data_full = self._matmul(D, stack)
+                    data_full = self._matmul(D, stack, n_shard=n_shard)
                 else:
                     # single-row recovery: multiply only the needed rows
                     data_full = np.zeros((self.k, L), dtype=np.uint8)
-                    sub = self._matmul(D[want_data], stack)
+                    sub = self._matmul(D[want_data], stack,
+                                       n_shard=n_shard)
                     for r, i in enumerate(want_data):
                         data_full[i] = sub[r]
             for i in want_data:
                 out[i] = chunks[i] if i in chunks else data_full[i]
         if want_parity:
             parity = self._matmul(
-                self.matrix[[i - self.k for i in want_parity]], data_full)
+                self.matrix[[i - self.k for i in want_parity]], data_full,
+                n_shard=n_shard)
             for r, i in enumerate(want_parity):
                 out[i] = parity[r]
         return out

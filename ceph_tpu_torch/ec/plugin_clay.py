@@ -151,8 +151,8 @@ class ClayCode(MatrixErasureCode):
 
     # -- core: recover erased C given alive C (also the encode) ------------
     def _decode_symbols(self, C: dict[int, np.ndarray],
-                        erased: list[int], L: int
-                        ) -> dict[int, np.ndarray]:
+                        erased: list[int], L: int, *,
+                        n_shard: int = 1) -> dict[int, np.ndarray]:
         """C: alive INTERNAL node -> (alpha, L) sub-chunk array (virtual
         pads included as zeros).  Returns C for erased nodes.
 
@@ -269,8 +269,9 @@ class ClayCode(MatrixErasureCode):
                     known[r] = U[i, Zs].reshape(-1)
             # D's product stays on the codec's device for F_er's
             if D is not None:
-                known = self._matmul_device(D, known)
-            rec = self.host_sync(self._matmul_device(F_er, known))
+                known = self._matmul_device(D, known, n_shard=n_shard)
+            rec = self.host_sync(self._matmul_device(F_er, known,
+                                                     n_shard=n_shard))
             rec = rec.reshape(len(E), len(Zs), L)
             for r, node in enumerate(E):
                 U[node, Zs] = rec[r]
@@ -342,8 +343,8 @@ class ClayCode(MatrixErasureCode):
         return np.stack([parity[self.k_int + j].reshape(L)
                          for j in range(self.m)])
 
-    def decode_chunks(self, want: Sequence[int],
-                      chunks: ChunkMap) -> ChunkMap:
+    def decode_chunks(self, want: Sequence[int], chunks: ChunkMap, *,
+                      n_shard: int = 1) -> ChunkMap:
         avail = {i: c for i, c in chunks.items() if i < self.chunk_count}
         missing = [i for i in want if i not in avail]
         if not missing:
@@ -356,7 +357,8 @@ class ClayCode(MatrixErasureCode):
         # all erased nodes must be recovered together (coupling crosses them)
         erased = [self._ext2int(i) for i in range(self.chunk_count)
                   if i not in avail]
-        rec = self._decode_symbols(C, erased, L // self.alpha)
+        rec = self._decode_symbols(C, erased, L // self.alpha,
+                                   n_shard=n_shard)
         out: ChunkMap = {}
         for i in want:
             out[i] = chunks[i] if i in avail \
@@ -406,7 +408,7 @@ class ClayCode(MatrixErasureCode):
             1, 0, 2).reshape(n_str, L)
 
     def encode_chunks_folded(self, folded: np.ndarray, n_str: int,
-                             L: int) -> np.ndarray:
+                             L: int, *, n_shard: int = 1) -> np.ndarray:
         """Folded encode: ``folded`` is (k, n_str*L) with each op an
         exact-L segment; returns (m, n_str*L) parity in the same
         layout.  One _decode_symbols pass covers the whole launch."""
@@ -419,7 +421,8 @@ class ClayCode(MatrixErasureCode):
         for v in range(self.k, self.k_int):  # shortened: virtual zeros
             C[v] = np.zeros((self.alpha, width), dtype=np.uint8)
         parity = self._decode_symbols(
-            C, list(range(self.k_int, self.n_int)), width)
+            C, list(range(self.k_int, self.n_int)), width,
+            n_shard=n_shard)
         out = np.empty((self.m, n_str * L), dtype=np.uint8)
         for j in range(self.m):
             out[j] = self._unfold_planes(
@@ -428,7 +431,8 @@ class ClayCode(MatrixErasureCode):
 
     def decode_chunks_folded(self, want: Sequence[int],
                              avail: Sequence[int], folded: np.ndarray,
-                             n_str: int, L: int) -> np.ndarray:
+                             n_str: int, L: int, *,
+                             n_shard: int = 1) -> np.ndarray:
         """Folded decode: ``folded`` is (len(avail), n_str*L) survivor
         rows in ``avail`` order; returns (len(want), n_str*L)
         reconstructed rows in ``want`` order."""
@@ -443,7 +447,7 @@ class ClayCode(MatrixErasureCode):
             C[v] = np.zeros((self.alpha, width), dtype=np.uint8)
         erased = [self._ext2int(i) for i in range(self.chunk_count)
                   if i not in avail]
-        rec = self._decode_symbols(C, erased, width)
+        rec = self._decode_symbols(C, erased, width, n_shard=n_shard)
         out = np.empty((len(want), n_str * L), dtype=np.uint8)
         for r, i in enumerate(want):
             out[r] = self._unfold_planes(
@@ -478,7 +482,7 @@ class ClayCode(MatrixErasureCode):
 
     def repair_chunk(self, lost: int,
                      helper_subchunks: dict[int, np.ndarray],
-                     L: int) -> np.ndarray:
+                     L: int, *, n_shard: int = 1) -> np.ndarray:
         """Repair one lost EXTERNAL chunk from helpers' alpha/q sub-chunk
         slices (each helper i supplies array (alpha/q, L/alpha) — its
         planes repair_planes(lost), in that order)."""
@@ -554,7 +558,8 @@ class ClayCode(MatrixErasureCode):
         known = np.ascontiguousarray(
             U[other_nodes].reshape(len(other_nodes), P * Ls))
         sol = self.host_sync(self._matmul_device(
-            Hinv, self._matmul_device(Hoth, known)))
+            Hinv, self._matmul_device(Hoth, known, n_shard=n_shard),
+            n_shard=n_shard))
         sol = sol.reshape(q, P, Ls)
         for r, node in enumerate(col_nodes):
             U[node] = sol[r]
@@ -587,7 +592,8 @@ class ClayCode(MatrixErasureCode):
 
     def repair_chunk_folded(self, lost: int,
                             helpers_list: list[dict[int, np.ndarray]],
-                            L: int) -> list[np.ndarray]:
+                            L: int, *, n_shard: int = 1
+                            ) -> list[np.ndarray]:
         """Folded MSR repair: many concurrent repairs of the SAME lost
         chunk (a recovery storm rebuilding one downed OSD's shard
         across objects) fold into ONE repair pass — each op's (P, Ls)
@@ -598,7 +604,8 @@ class ClayCode(MatrixErasureCode):
         the Ls axis)."""
         n = len(helpers_list)
         if n == 1:
-            return [self.repair_chunk(lost, helpers_list[0], L)]
+            return [self.repair_chunk(lost, helpers_list[0], L,
+                                      n_shard=n_shard)]
         P = len(self.repair_planes(lost))
         Ls = L // self.alpha
         folded: dict[int, np.ndarray] = {}
@@ -606,7 +613,7 @@ class ClayCode(MatrixErasureCode):
             folded[h] = np.ascontiguousarray(np.stack(
                 [np.asarray(hl[h], dtype=np.uint8).reshape(P, Ls)
                  for hl in helpers_list], axis=1)).reshape(P, n * Ls)
-        flat = self.repair_chunk(lost, folded, n * L)
+        flat = self.repair_chunk(lost, folded, n * L, n_shard=n_shard)
         out = flat.reshape(self.alpha, n, Ls).transpose(
             1, 0, 2).reshape(n, L)
         return [out[i] for i in range(n)]

@@ -48,6 +48,10 @@ class TpuCode(MatrixErasureCode):
 
         Columns are independent, so a stripe batch folds into the length
         axis: (batch, k, L) -> (k, batch*L) without changing the math.
+        When the profile resolves a device fan-out (``shard`` key /
+        ``ec_shard`` option) the folded launch shards its length axis
+        across the mesh; an indivisible batch*L takes the single-device
+        launch, byte-identical.
         """
         stripes = np.ascontiguousarray(stripes, dtype=np.uint8)
         b, k, L = stripes.shape
@@ -55,14 +59,16 @@ class TpuCode(MatrixErasureCode):
             raise ErasureCodeError(f"expected k={self.k}, got {k}")
         folded = stripes.transpose(1, 0, 2).reshape(k, b * L)
         # device-resident multiply: ONE host copy for the whole batch
-        parity = self.host_sync(self._matmul_device(self.matrix, folded))
+        parity = self.host_sync(self._matmul_device(
+            self.matrix, folded, n_shard=self.shard_devices()))
         return parity.reshape(self.m, b, L).transpose(1, 0, 2)
 
     def decode_batch(self, want: list[int], stripes: ChunkMap) -> ChunkMap:
         """Batched decode: stripes maps shard id -> (batch, L) arrays; the
-        batch folds into the length axis exactly as in encode_batch."""
+        batch folds into the length axis exactly as in encode_batch,
+        with the same mesh fan-out."""
         batch, L = next(iter(stripes.values())).shape
         flat = {i: np.ascontiguousarray(v, dtype=np.uint8).reshape(batch * L)
                 for i, v in stripes.items()}
-        out = self.decode_chunks(want, flat)
+        out = self.decode_chunks(want, flat, n_shard=self.shard_devices())
         return {i: v.reshape(batch, L) for i, v in out.items()}

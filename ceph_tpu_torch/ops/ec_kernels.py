@@ -60,6 +60,7 @@ ops/checksum.py, and ``plain`` for every run of a plain version).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from dataclasses import dataclass
@@ -79,23 +80,49 @@ KERNELS = ("xla", "pallas", "mxu", "bitxor")
 #: and every run of a plain version adds one to ``plain``
 LAUNCHES = {"gf_bitterm": 0, "gf_bitxor": 0, "gf_bitmm": 0,
             "gf_sched_xor": 0, "crc32c_chunks": 0, "plain": 0}
+#: the same counts by logical mesh device: (device id, counter name) ->
+#: launches made inside that device's share of a sharded op or step
+#: (parallel/distributed.py runs each share under on_logical_device)
+DEVICE_LAUNCHES: dict[tuple[int, str], int] = {}
 _COUNT_LOCK = threading.Lock()
+_TLS = threading.local()
 
 
 def _count(name: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        dev = getattr(_TLS, "device", None)
+        if dev is not None:
+            DEVICE_LAUNCHES[(dev, name)] = \
+                DEVICE_LAUNCHES.get((dev, name), 0) + 1
+
+
+@contextlib.contextmanager
+def on_logical_device(device_id: int):
+    """Book this thread's launches to logical device ``device_id`` too."""
+    prev = getattr(_TLS, "device", None)
+    _TLS.device = device_id
+    try:
+        yield
+    finally:
+        _TLS.device = prev
 
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        DEVICE_LAUNCHES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     with _COUNT_LOCK:
         return dict(LAUNCHES)
+
+
+def device_launch_counts() -> dict[tuple[int, str], int]:
+    with _COUNT_LOCK:
+        return dict(DEVICE_LAUNCHES)
 
 
 def kernel_supports(kernel: str, M: np.ndarray, shape=None, *,

@@ -8,11 +8,17 @@ products of the ``native`` codec backend (``vandermonde_matrix``,
 ``checksummer``) and the messenger's cipher (``chacha20_xor``).
 
 The port's own copy of the loading logic of the JAX package's
-``ceph_tpu/ops/native.py``: the shared object is built with ``make -s``
-in ``native/`` when it is missing or older than a source, under a
-thread lock and a file lock (two processes of one checkout build once).
-A failed build raises NativeUnavailable; nothing falls back to the
-pure-Python ``checksum.crc32c_ref``.
+``ceph_tpu/ops/native.py``: the shared object is built from
+``native/``'s sources with ``make -s BUILD=<dir>`` into the port's own
+git-ignored ``ceph_tpu_torch/build/native/`` when it is missing or
+older than a source, under a thread lock and a file lock (two processes
+of one checkout build once, and none loads a library another is still
+linking).  The port never writes ``native/build/``: the JAX package's
+loader there takes no file lock, and a process of either package that
+loads ``native/build/libcephtpu.so`` while another's ``make`` is still
+linking it fails ("file too short") and keeps that failure for its
+life.  A failed build raises NativeUnavailable; nothing falls back to
+the pure-Python ``checksum.crc32c_ref``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import numpy as np
 
 _NATIVE_DIR = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "native"))
-_SO_PATH = os.path.join(_NATIVE_DIR, "build", "libcephtpu.so")
+#: where the port builds its copy of the library
+_BUILD_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "build", "native"))
 _LOCK = threading.Lock()
 
 
@@ -35,10 +43,14 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
+def so_path() -> str:
+    return os.path.join(_BUILD_DIR, "libcephtpu.so")
+
+
 def _stale() -> bool:
-    if not os.path.exists(_SO_PATH):
+    if not os.path.exists(so_path()):
         return True
-    so_m = os.path.getmtime(_SO_PATH)
+    so_m = os.path.getmtime(so_path())
     return any(os.path.getmtime(os.path.join(_NATIVE_DIR, f)) > so_m
                for f in os.listdir(_NATIVE_DIR)
                if f.endswith((".cc", ".h")))
@@ -65,17 +77,18 @@ def lib() -> ctypes.CDLL:
 
 
 def _load() -> ctypes.CDLL:
-    os.makedirs(os.path.join(_NATIVE_DIR, "build"), exist_ok=True)
-    with open(os.path.join(_NATIVE_DIR, "build", ".lock"), "w") as lockf:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if _stale():
-            p = subprocess.run(["make", "-s"], cwd=_NATIVE_DIR,
-                               capture_output=True, text=True)
+            p = subprocess.run(["make", "-s", f"BUILD={_BUILD_DIR}"],
+                               cwd=_NATIVE_DIR, capture_output=True,
+                               text=True)
             if p.returncode:
                 raise NativeUnavailable(
                     f"native build failed (make exit {p.returncode}): "
                     f"{p.stderr or p.stdout}")
-    L = ctypes.CDLL(_SO_PATH)
+        L = ctypes.CDLL(so_path())
     u8p = ctypes.POINTER(ctypes.c_uint8)
     L.ct_init.restype = ctypes.c_int
     L.ct_gf_mul.restype = ctypes.c_uint8

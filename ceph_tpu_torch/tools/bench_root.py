@@ -32,9 +32,10 @@ Where it differs from ``bench.py`` (each pinned by a test):
   carries on on the CPU.  The kernel modes run on ``--device``; the
   cluster modes put nothing on the card, as in the reference (their
   clusters run ``ec_backend: native`` and ``numpy`` pools).
-- The sharded legs ask for every device of ``--device`` (one on one
-  card and on the CPU, ``shard_devices: 1``); a fan-out above one
-  raises ErasureCodeError until the multi-GPU fan-out is ported.
+- The sharded legs fan out over every device of ``--device`` as
+  ``parallel.mesh.devices`` lists them: the cards, or the logical
+  devices ``force_devices`` set on one (``shard_devices: 1`` on one
+  card or the CPU otherwise).
 - Kernel legs (the quiet kernel reference and the candidate sweep) are
   timed with CUDA events around the launches alone on the card, on the
   host clock on the CPU.  Only ``kernel_supports`` skips a candidate;
@@ -106,10 +107,11 @@ def bench_device(name: str = "cuda"):
 
 
 def device_count(dev) -> int:
-    """The devices of ``dev``'s kind the sharded legs ask for."""
-    import torch
+    """The devices of ``dev``'s kind the sharded legs fan out over: the
+    mesh's devices (parallel.mesh.devices)."""
+    from ..parallel.mesh import devices
 
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+    return len(devices(dev.type))
 
 
 def device_label(dev) -> str:
@@ -732,17 +734,17 @@ def ec_batch_bench(trace: bool = False, device: str = "cuda",
     # warm the kernel race off the clock: every pow2 stripe-count
     # fold shape a burst can produce (coalescing patterns vary run to
     # run; a race of three candidates leaking into the timed burst
-    # would swamp the measurement), then one full warm burst per codec.
-    # The sharded codec serves one device (a fan-out above one raised
-    # at its construction), so its shapes are the single codec's
-    from ..ec.batcher import bucket_len
+    # would swamp the measurement), then one full warm burst per codec
+    from ..ec.batcher import bucket_len, shard_pad
     bucket = bucket_len(chunk)
     n2 = 1
     while n2 <= writers:
         codec.encode_chunks(np.zeros((K, n2 * bucket), dtype=np.uint8))
+        # sharded shapes use the flush path's shard_pad padding
+        ns, n2s = shard_pad(n2, n_dev)
         sharded_codec._matmul_device(
             sharded_codec.matrix,
-            np.zeros((K, n2 * bucket), dtype=np.uint8))
+            np.zeros((K, n2s * bucket), dtype=np.uint8), n_shard=ns)
         n2 <<= 1
     burst(ECBatcher(window_us=2000, max_bytes=64 << 20), codec)
     burst(ECBatcher(window_us=2000, max_bytes=64 << 20), sharded_codec)
@@ -1569,8 +1571,8 @@ def ec_recovery_bench(progress: bool = False,
     the batched leg, and digest-verifies every rebuilt chunk against
     the original data.  value = best batched rebuild GB/s (source =
     survivor bytes read per op); vs_baseline = batched / unbatched.
-    The sharded leg asks for every device of ``device`` (one card, or
-    the CPU); a fan-out above one raises."""
+    The sharded leg fans out over every device of ``device``
+    (device_count)."""
     import threading
 
     import numpy as np
@@ -1627,15 +1629,18 @@ def ec_recovery_bench(progress: bool = False,
         return flat, time.perf_counter() - t0, ok[0]
 
     # warm the decode race off the clock (decode matrix + fold
-    # shapes); the sharded codec serves one device, so its shapes are
-    # the single codec's
+    # shapes); sharded shapes follow the flush path's shard_pad padding
+    from ..ec.batcher import shard_pad
     bucket = bucket_len(chunk)
     n2 = 1
     while n2 <= readers:
         flat = {s: np.zeros(n2 * bucket, dtype=np.uint8)
                 for s in sorted(cases[0][0][1])}
         single.decode_chunks(want, flat)
-        sharded.decode_chunks(want, dict(flat))
+        ns, n2s = shard_pad(n2, n_dev)
+        flat_s = {s: np.zeros(n2s * bucket, dtype=np.uint8)
+                  for s in sorted(cases[0][0][1])}
+        sharded.decode_chunks(want, flat_s, n_shard=ns)
         n2 <<= 1
 
     src_per_op = K * chunk  # survivor bytes read to rebuild one stripe

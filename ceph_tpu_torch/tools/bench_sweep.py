@@ -11,7 +11,8 @@ which drive tools/bench_root's modes (the twin of the reference's
 repo-root bench.py) and keep the keys each row's ``extract`` names.
 Rows that share a tool and arguments share one child run per sweep.
 Every child gets ``--device``.  The reference's ``--multichip`` blob
-waits for the multi-GPU slice.
+has no twin here; the multi-device dry run it wraps is
+``python -m ceph_tpu_torch.parallel.dryrun``.
 
 The state file lies under the git-ignored ``ceph_tpu_torch/build/``
 (``BENCH_SWEEP.json``, or ``BENCH_SWEEP_CPU.json`` for ``--device cpu``,

@@ -210,12 +210,14 @@ OPTIONS: list[Option] = [
     Option("ec_shard", str, "auto", OptionLevel.ADVANCED,
            "device fan-out for folded EC batch launches: a flushed "
            "batch's (k, sum L) tensor shards its length axis across "
-           "the device mesh (parallel/distributed.make_folded_matmul). "
-           "'auto' uses every device on an accelerator backend and "
-           "falls through to single-device on CPU (one XLA:CPU device "
-           "already uses every core); 'off' pins single-device; an "
-           "integer N caps the fan-out (clamped to the device count). "
-           "Per-pool override via ec profile key 'shard'",
+           "a flat mesh of the codec's devices, each running the CUDA "
+           "kernel on its column slice on a stream of its own "
+           "(parallel/distributed.make_folded_matmul). 'auto' uses "
+           "every card and one device on the CPU; 'off' pins "
+           "single-device; an integer N caps the fan-out (clamped to "
+           "the device count: the cards, or the logical devices "
+           "parallel.mesh.force_devices sets on one). Per-pool "
+           "override via ec profile key 'shard'",
            see_also=("ec_batch",)),
     Option("ec_kernel", str, "auto", OptionLevel.ADVANCED,
            "GF(2^8) region-kernel realization for torch-backend EC "

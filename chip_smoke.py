@@ -128,11 +128,30 @@ in order, one line each:
              ``--frontend rgw``, whose recovery deadline a fault shared
              with the JAX package misses in some runs (a divergent
              rollback drops shards of the gateway's objects).
+19. mesh   — the multi-device fan-out (ceph_tpu_torch/parallel) on one
+             card: parallel.mesh.force_devices puts 8 logical devices on
+             cuda:0, each with a CUDA stream of its own, as a dp=2 x
+             shard=4 mesh; DistributedStripeEC of StripeCodec(8, 3) on 64
+             stripes of 1 MiB (the folded (8, 8 MiB) main shape) writes,
+             rebalances by +1 and -1, recovers from chunks 1, 4 and 9
+             lost, applies a parity delta and reduces its stats, each
+             step held byte for byte against the same work on one device
+             and sampled columns against the numpy oracle, the digest
+             against numpy's wrapped sum; 8 writers each encode an (8,
+             128 KiB) stripe through an ECBatcher on a tpu codec of
+             shard=8, plain and checksummed (one sharded launch each,
+             parity and csums against the native library); the host mesh
+             2x1x4 in this process; two parallel.dcn_worker children, 4
+             logical devices each on cuda:0, in a gloo group (equal
+             digests, exact recovery); tools.ec_tool encodes an 8 MiB file
+             on the card and decodes it with chunks 1, 4 and 9 removed.
+             Each step's CUDA-event ms and GB/s are printed, and the
+             launches of each kernel and each logical device.
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
 bit-matrix path, phase 11 the write path, phases 12-14 the wide path and
-phase 16 the cluster path and phase 17 the OSD path: the launch counts are
-set to 0 before each path and read after it.
+phase 16 the cluster path, phase 17 the OSD path and phase 19 the mesh
+path: the launch counts are set to 0 before each path and read after it.
 The region kernels must have launched on the first, the scheduled-XOR
 kernel on the second, G1 and a region kernel on the third, the plain
 versions on none, and no kernel pick may have skipped a candidate but
@@ -158,9 +177,13 @@ region kernel.  On the bench_root phase every mode must exit 0 with its
 row verified;
 ``--scrub`` must have launched G1, ``--ec-batch`` and ``--ec-recovery``
 K1, K2 and G4, none a plain version or an ``xla`` pick, and the plane
-leg must have made one copy back a flush.  Then one
-JSON line lists every kernel, and the last line is the ``{"ok": true,
-"device": ...}`` object.  Any failure exits nonzero, and so does a
+leg must have made one copy back a flush.  On the mesh phase K1, K2, G4
+and G1 must have launched and the plain versions never, every logical
+device's slice (in this process and in each child) must have launched a
+region kernel, and each batcher burst must have made a sharded launch.
+Then one JSON line lists every kernel (``mesh_launches``: its launches
+on phase 19), and the last line is the ``{"ok": true, "device": ...}``
+object.  Any failure exits nonzero, and so does a
 process with no CUDA card.
 """
 
@@ -290,6 +313,12 @@ BENCH = dict(stripes=(4 << 10, 64 << 10, 1 << 20, 4 << 20), reps=4)
 WIDE_PLUGINS = ("lrc", "shec", "clay")
 #: size flushes of the mixed-length writes (one encode a writer each)
 MIXED_ROUNDS = 2
+#: phase 19, the mesh path: logical devices on the card (a dp=2 x
+#: shard=4 mesh), stripes of k=8 chunks of ``chunk`` bytes (1 MiB
+#: stripes), the sharded batcher's writers and chunk, the two-process
+#: leg's logical devices a process, and ec_tool's file
+MESH = dict(devices=8, B=64, chunk=128 << 10, writers=8,
+            batch_chunk=128 << 10, proc_devices=4, tool_bytes=8 << 20)
 
 
 def say(phase: str, msg: str) -> None:
@@ -2872,6 +2901,173 @@ def phase_bench_root(dev: torch.device) -> dict[str, tuple]:
     return out
 
 
+def mesh_clock(dev: torch.device, times: dict):
+    """clock(name) for parallel.dryrun.mesh_leg: CUDA events on the
+    card's current stream around a step (whose device streams fork from
+    it and join back), waited for; ms into ``times``.  The host clock on
+    the CPU."""
+    @contextlib.contextmanager
+    def clock(name):
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            yield
+            times[name] = (time.perf_counter() - t0) * 1e3
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record(torch.cuda.current_stream(dev))
+        yield
+        end.record(torch.cuda.current_stream(dev))
+        end.synchronize()
+        times[name] = start.elapsed_time(end)
+    return clock
+
+
+def mesh_tool(dev: torch.device, size: int, rng: np.random.Generator
+              ) -> dict:
+    """tools.ec_tool on a tpu k=8 m=3 profile (on the card: the plugin's
+    default; ``device=cpu`` otherwise): encode a file of ``size`` seeded
+    bytes, remove chunks 1, 4 and 9, decode, and compare."""
+    import tempfile
+
+    from ceph_tpu_torch.tools import ec_tool
+
+    payload = rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+    prof = "plugin=tpu,technique=reed_sol_van,k=8,m=3" + (
+        "" if dev.type == "cuda" else ",device=cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in.bin"), os.path.join(tmp, "out.bin")
+        chunks = os.path.join(tmp, "chunks")
+        with open(src, "wb") as f:
+            f.write(payload)
+        t0 = time.perf_counter()
+        run_quiet("ec_tool encode", ec_tool.main,
+                  ["encode", prof, src, chunks])
+        for cid in (1, 4, 9):
+            os.remove(os.path.join(chunks, f"chunk.{cid}"))
+        run_quiet("ec_tool decode", ec_tool.main,
+                  ["decode", prof, chunks, out])
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            if f.read() != payload:
+                raise AssertionError("ec_tool: the decoded file differs")
+    return {"bytes": size, "wall_s": wall}
+
+
+def phase_mesh(dev: torch.device, rng: np.random.Generator, *,
+               devices: int, B: int, chunk: int, writers: int,
+               batch_chunk: int, proc_devices: int, tool_bytes: int
+               ) -> tuple[dict, dict]:
+    """Phase 19: the mesh path on logical devices of the card (module
+    docstring).  Returns (launch counts of this process, results)."""
+    from ceph_tpu_torch.models.stripe_codec import StripeCodec
+    from ceph_tpu_torch.parallel import dryrun
+    from ceph_tpu_torch.parallel import mesh as pmesh
+    from ceph_tpu_torch.parallel.distributed import DistributedStripeEC
+
+    t0 = time.perf_counter()
+    k = 8
+    data = rng.integers(0, 256, (B, k, chunk), dtype=np.uint8)
+    delta = rng.integers(0, 256, (B, k, chunk), dtype=np.uint8)
+    hdata = rng.integers(0, 256, (4, k, chunk), dtype=np.uint8)
+    hdelta = rng.integers(0, 256, (4, k, chunk), dtype=np.uint8)
+    pays = [rng.integers(0, 256, (k, batch_chunk), dtype=np.uint8)
+            for _ in range(writers)]
+    res: dict = {"times": {}}
+    pmesh.force_devices(dev.type, devices)
+    try:
+        devs = pmesh.devices(dev.type)
+        mesh = pmesh.make_mesh(devices, devices=devs)
+        res["mesh"] = mesh.shape
+        codec = StripeCodec(k=k, m=3)
+        dec = DistributedStripeEC(codec, mesh)
+        ec_kernels.reset_launches()
+        # every step once untimed at the timed shapes: each device's
+        # first launch of a matrix builds its tables, and the first pass
+        # pays the allocations of every device's stream
+        dryrun.mesh_leg(dec, data, delta, cols=oracle_columns(chunk,
+                                                              windows=4))
+        res["main"] = dryrun.mesh_leg(
+            dec, data, delta, cols=oracle_columns(chunk, windows=16),
+            clock=mesh_clock(dev, res["times"]))
+        res["host"] = dryrun.host_mesh_leg(codec, devs, 2, hdata, hdelta)
+        res["batcher"] = dryrun.batcher_leg(devices, dev.type, pays)
+        res["batcher_csums"] = dryrun.batcher_leg(devices, dev.type, pays,
+                                                  with_csums=True)
+        res["tool"] = mesh_tool(dev, tool_bytes, rng)
+        counts = ec_kernels.launch_counts()
+        res["device_launches"] = ec_kernels.device_launch_counts()
+        res["device_ids"] = [d.id for d in devs]
+    finally:
+        pmesh.force_devices(dev.type, None)
+    t1 = time.perf_counter()
+    res["processes"] = dryrun.process_leg(dev.type, proc_devices)
+    res["processes_s"] = time.perf_counter() - t1
+    res["phase_s"] = time.perf_counter() - t0
+    return counts, res
+
+
+def mesh_line(res: dict, dev: torch.device) -> str:
+    """The [mesh] line: each step's CUDA-event ms and GB/s (bytes: the
+    step's data in, or the stack for the ones that read it)."""
+    main = res["main"]
+    B, L, S = main["B"], main["L"], main["S"]
+    moved = {"write": B * 8 * L, "rebalance": 2 * B * S * L,
+             "recovery": B * 8 * L, "delta": B * 8 * L,
+             "stats": B * S * L}
+    steps = ", ".join(
+        f"{name} {ms:.3f} ms ({moved[name] / ms / 1e6:.2f} GB/s)"
+        for name, ms in res["times"].items())
+    return (f"mesh {res['mesh']} of logical devices on {dev}, B={B} "
+            f"stripes of 8 x {L} bytes: {steps}; digest "
+            f"{main['digest']}; host mesh {res['host']['mesh']} digest "
+            f"{res['host']['digest']}; batcher plain "
+            f"{json.dumps(res['batcher'])}, checksummed "
+            f"{json.dumps(res['batcher_csums'])}; ec_tool "
+            f"{res['tool']['bytes'] >> 20} MiB round trip "
+            f"{res['tool']['wall_s']:.3f} s; two processes "
+            f"{res['processes'][0]['mesh']} digest "
+            f"{res['processes'][0]['digest']} "
+            f"({res['processes_s']:.1f} s with their start); {card(dev)}; "
+            f"phase {res['phase_s']:.1f} s")
+
+
+def check_mesh(counts: dict[str, int], res: dict) -> None:
+    """Phase 19 launched K1, K2, G4 and G1 and never a plain version;
+    every logical device of this process and of each child launched a
+    region kernel on its slice and no plain version."""
+    say("launches", f"mesh: {json.dumps(counts)}")
+    region = [KERNELS[r][1] for r in KERNELS]
+    for ctr in region + [CRC_KERNEL[1]]:
+        if not counts[ctr]:
+            raise AssertionError(f"mesh: {ctr} never launched")
+    if counts["plain"]:
+        raise AssertionError(f"mesh: a plain version ran {counts['plain']} "
+                             "times")
+    per_dev = res["device_launches"]
+    by_dev = {d: {c: per_dev.get((d, c), 0) for c in region + ["plain"]}
+              for d in res["device_ids"]}
+    say("launches", "mesh by logical device: " + json.dumps(
+        {str(d): c for d, c in by_dev.items()}))
+    for d, c in by_dev.items():
+        if c["plain"] or not any(c[r] for r in region):
+            raise AssertionError(f"mesh: logical device {d}: {c}")
+    for r in res["processes"]:
+        say("launches", f"mesh: process {r['process_id']}: "
+                        f"{json.dumps(r['launches'])}, by logical device "
+                        f"{json.dumps(r['device_launches'])}")
+        if r["launches"]["plain"] or r["foreign_modules"]:
+            raise AssertionError(f"mesh: process {r['process_id']}: {r}")
+        ids = {key.split("/")[0] for key in r["device_launches"]}
+        if len(ids) != r["devices_local"] or not all(
+                any(r["device_launches"].get(f"{d}/{c}", 0)
+                    for c in region) for d in ids):
+            raise AssertionError(f"mesh: process {r['process_id']}: a "
+                                 "logical device launched no region "
+                                 f"kernel: {r['device_launches']}")
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -2956,6 +3152,14 @@ def main() -> int:
     t_root = time.perf_counter()
     phase_bench_root(dev)
     say("bench_root", f"phase 18: {time.perf_counter() - t_root:.1f} s")
+    mesh_counts, mesh_res = phase_mesh(dev, np.random.default_rng(SEED),
+                                       **MESH)
+    say("mesh", mesh_line(mesh_res, dev))
+    check_mesh(mesh_counts, mesh_res)
+    for realization, row in kernels.items():
+        row["mesh_launches"] = mesh_counts[KERNELS[realization][1]]
+    sched_row["mesh_launches"] = mesh_counts[SCHED_KERNEL[1]]
+    crc_row["mesh_launches"] = mesh_counts[CRC_KERNEL[1]]
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

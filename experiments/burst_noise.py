@@ -68,10 +68,10 @@ class TimedBatcher(ECBatcher):
             self._late = max(0.0, self._taken_at - ops[0].deadline)
         return ops
 
-    def _complete(self, ops, src_bytes, reason):
+    def _complete(self, ops, src_bytes, reason, *shard):
         self.flushes.append((self._late, time.monotonic() - self._taken_at,
                              len(ops)))
-        super()._complete(ops, src_bytes, reason)
+        super()._complete(ops, src_bytes, reason, *shard)
 
 
 def burst(codec, payloads) -> tuple[float, TimedBatcher]:

@@ -21,7 +21,6 @@ import pytest
 import torch
 
 import bench as ref_bench
-from ceph_tpu_torch import ec
 from ceph_tpu_torch.ops import ec_kernels
 from ceph_tpu_torch.tools import bench_root, bench_sweep
 
@@ -332,10 +331,24 @@ def test_unsupported_candidate_is_skipped(small, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["ec_batch_bench", "ec_recovery_bench"])
-def test_sharded_leg_above_one_device_raises(small, monkeypatch, mode):
-    monkeypatch.setattr(bench_root, "device_count", lambda dev: 2)
-    with pytest.raises(ec.ErasureCodeError, match="shard=2"):
-        run_mode(getattr(bench_root, mode), device="cpu")
+def test_sharded_legs_fan_out_over_the_mesh(small, mode):
+    """With 4 logical CPU devices (parallel.mesh.force_devices) the
+    sharded legs fan out as bench.py's do over its forced devices:
+    ``shard_devices`` 4, sharded launches, every op verified."""
+    from ceph_tpu_torch.parallel import mesh as meshmod
+
+    meshmod.force_devices("cpu", 4)
+    try:
+        kw = {} if mode == "ec_batch_bench" else {"progress": False,
+                                                   "wide": False}
+        _rc, row = run_mode(getattr(bench_root, mode), device="cpu", **kw)
+    finally:
+        meshmod.force_devices("cpu", None)
+    assert row["shard_devices"] == 4
+    assert row["digest_verified"] is True
+    sharded = (row["sharded_launches"] if mode == "ec_batch_bench"
+               else row["scenarios"]["sharded"]["sharded_launches"])
+    assert sharded >= 1
 
 
 def test_kernel_times_on_the_cpu_time_each_call():

@@ -775,3 +775,80 @@ def test_bench_root_phase_fails_on_a_mode_that_exits_nonzero(monkeypatch):
     monkeypatch.setattr(chip_smoke, "card", lambda dev: dev.type)
     with pytest.raises(AssertionError, match="bench_root scrub exit 1"):
         chip_smoke.phase_bench_root(torch.device("cpu"))
+
+
+# ------------------------------------------------------------ phase 19
+def test_mesh_phase_rehearsal_on_cpu(capsys):
+    """Phase 19 on 8 logical CPU devices at a small size: the mesh steps
+    against one device and the oracle, the host mesh, both sharded
+    batcher bursts, ec_tool's round trip and the two-process leg, all
+    exact; the plain versions ran, which check_mesh must refuse.  The
+    forced devices are given back."""
+    from ceph_tpu_torch.parallel import mesh as meshmod
+
+    counts, res = chip_smoke.phase_mesh(
+        torch.device("cpu"), np.random.default_rng(5), devices=8, B=4,
+        chunk=8192, writers=8, batch_chunk=1024, proc_devices=2,
+        tool_bytes=64 << 10)
+    assert len(meshmod.devices("cpu")) == 1
+    assert res["mesh"] == {"dp": 2, "shard": 4}
+    assert set(res["times"]) == {"write", "rebalance", "recovery",
+                                 "delta", "stats"}
+    assert res["host"]["mesh"] == {"host": 2, "dp": 1, "shard": 4}
+    assert res["batcher"]["sharded_launches"] == 1
+    assert res["batcher_csums"]["sharded_launches"] == 1
+    assert res["processes"][0]["digest"] == res["processes"][1]["digest"]
+    assert counts["plain"] > 0
+    assert {d for d, _ in res["device_launches"]} == set(range(8))
+    line = chip_smoke.mesh_line(res, torch.device("cpu"))
+    assert "write" in line and "GB/s" in line and "digest" in line
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.check_mesh(counts, res)
+
+
+def mesh_result(**over) -> tuple[dict, dict]:
+    """Counts and results of a phase 19 that check_mesh accepts."""
+    counts = {"gf_bitterm": 138, "gf_bitxor": 72, "gf_bitmm": 80,
+              "gf_sched_xor": 0, "crc32c_chunks": 8, "plain": 0}
+    per = {(d, c): n for d in range(8)
+           for c, n in (("gf_bitterm", 16), ("gf_bitxor", 8),
+                        ("gf_bitmm", 9))}
+    procs = [{"process_id": p, "devices_local": 4, "foreign_modules": [],
+              "launches": {"gf_bitterm": 8, "plain": 0},
+              "device_launches": {f"{4 * p + d}/gf_bitterm": 2
+                                  for d in range(4)}} for p in (0, 1)]
+    res = {"device_launches": per, "device_ids": list(range(8)),
+           "processes": procs}
+    for key, value in over.items():
+        if key == "device":
+            d, c, n = value
+            per[(d, c)] = n
+        elif key == "process_device":
+            procs[1]["device_launches"].pop("7/gf_bitterm")
+        elif key == "foreign":
+            procs[0]["foreign_modules"] = ["jax"]
+        else:
+            counts[key] = value
+    return counts, res
+
+
+@pytest.mark.parametrize("fault,match", [
+    ({"gf_bitxor": 0}, "gf_bitxor never launched"),
+    ({"crc32c_chunks": 0}, "crc32c_chunks never launched"),
+    ({"plain": 3}, "a plain version ran 3"),
+    ({"device": (5, "plain", 1)}, "logical device 5"),
+    ({"process_device": True}, "launched no region kernel"),
+    ({"foreign": True}, "process 0"),
+])
+def test_mesh_check_refuses_each_fault(fault, match):
+    chip_smoke.check_mesh(*mesh_result())
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_mesh(*mesh_result(**fault))
+
+
+def test_mesh_check_refuses_a_device_with_no_region_kernel():
+    counts, res = mesh_result()
+    for c in ("gf_bitterm", "gf_bitxor", "gf_bitmm"):
+        res["device_launches"][(3, c)] = 0
+    with pytest.raises(AssertionError, match="logical device 3"):
+        chip_smoke.check_mesh(counts, res)

@@ -5,7 +5,9 @@ port's one change of meaning (``ec_backend`` offers ``torch`` where the
 reference offers ``jax``, and defaults to it, so an OSD builds its pools'
 codecs on the card unless asked for the host) and the help texts that named the jax backend
 and the jit (``ec_batch``, ``ec_kernel``, ``osd_scrub_fold``), which name
-the torch backend and the card."""
+the torch backend and the card, and ``ec_shard``'s, which names the
+port's fan-out (logical devices, CUDA kernels on streams) in place of
+XLA's."""
 
 import dataclasses
 
@@ -18,6 +20,8 @@ REF = {o.name: o for o in ref_config.OPTIONS}
 PORT = {o.name: o for o in port_config.OPTIONS}
 #: the options whose help text the port rewrote
 REWORDED = ("ec_batch", "ec_kernel", "osd_scrub_fold")
+#: ... and the fan-out's, which named XLA's devices
+REWORDED_FANOUT = ("ec_shard",)
 
 
 def fields(option, skip=()) -> dict:
@@ -36,7 +40,7 @@ def test_same_options_in_the_same_order():
 @pytest.mark.parametrize("name", sorted(REF))
 def test_option_matches_the_reference(name):
     ref, port = REF[name], PORT[name]
-    skip = ("desc",) if name in REWORDED else ()
+    skip = ("desc",) if name in REWORDED + REWORDED_FANOUT else ()
     if name == "ec_backend":
         skip += ("enum_values", "default")
     assert fields(port, skip) == fields(ref, skip)
@@ -62,6 +66,13 @@ def test_reworded_help_names_the_torch_backend(name):
     desc = PORT[name].desc
     assert "jax" not in desc and "jit" not in desc
     assert "torch" in desc or "card" in desc
+
+
+def test_ec_shard_help_names_the_ports_fan_out():
+    assert "XLA" in REF["ec_shard"].desc
+    desc = PORT["ec_shard"].desc
+    assert "XLA" not in desc
+    assert "CUDA kernel" in desc and "force_devices" in desc
 
 
 def test_no_other_help_text_names_jax():

@@ -22,6 +22,7 @@ from ceph_tpu_torch.ec.batcher import (ECBatcher, FLUSH_IDLE, FLUSH_SIZE,
                                        FLUSH_WINDOW, bucket_len)
 from ceph_tpu_torch.ec.matrix_code import KERNEL_RACE_ORDER
 from ceph_tpu_torch.ops import gf256, native
+from ceph_tpu_torch.parallel import mesh as meshmod
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.perf import kernel_profiler
 
@@ -370,27 +371,207 @@ def test_non_matrix_codec_passes_through():
     assert b.stats[FLUSH_IDLE] == 1
 
 
-def test_shard_fanout_raises(monkeypatch):
-    """A fan-out above one device raises: an explicit N, and ``auto``
-    (or ``on``, ``true``, ``yes``) on a host with several cards, which
-    the reference would spread over all of them; ``off`` and the CPU
-    device serve one."""
-    with pytest.raises(ec.ErasureCodeError, match="not ported"):
-        _codec(shard="4")
-    assert _codec(shard="off").shard_devices() == 1
-    assert _codec().shard_devices() == 1  # auto on the CPU device
-    codec = _codec()
-    codec.device = torch.device("cuda")  # as a codec on a card sees it
-    for cards in (1, 2):
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-        for mode in ("auto", "on", "true", "yes", "off"):
-            codec.profile["shard"] = mode
-            if cards > 1 and mode != "off":
-                with pytest.raises(ec.ErasureCodeError,
-                                   match="not ported"):
-                    codec.shard_devices()
-            else:
-                assert codec.shard_devices() == 1
+@pytest.fixture
+def cpu8():
+    """8 logical CPU devices (parallel.mesh.force_devices), the real one
+    after."""
+    meshmod.force_devices("cpu", 8)
+    yield
+    meshmod.force_devices("cpu", None)
+
+
+def _ref_codec(k=4, m=2, **profile):
+    return jax_ec.factory("tpu", {"k": k, "m": m, "backend": "jax",
+                                  **profile})
+
+
+def test_shard_devices_as_the_reference(cpu8, monkeypatch):
+    """min(N, devices) for an integer, 1 for ``off``, every device of a
+    card for ``auto`` and 1 on the CPU, 1 off the torch backend — the
+    reference's answers on its 8 CPU devices; a value that is none of
+    these raises (the reference reads it as 1)."""
+    for mode, want in (("off", 1), ("8", 8), ("3", 3), ("100", 8),
+                       ("auto", 1), ("on", 1)):
+        assert _codec(shard=mode).shard_devices() == want, mode
+        assert _ref_codec(shard=mode).shard_devices() == want, mode
+    assert _codec(backend="numpy", shard="8").shard_devices() == 1
+    with pytest.raises(ec.ErasureCodeError, match="bad shard"):
+        _codec(shard="many")
+    meshmod.force_devices("cpu", None)
+    assert _codec(shard="8").shard_devices() == 1  # the one real CPU
+    # auto on a card: every card (the device list stands in for them)
+    codec = _codec(shard="off")
+    codec.device = torch.device("cuda")
+    monkeypatch.setattr(meshmod, "devices", lambda kind="cuda": [0, 1, 2])
+    for mode, want in (("auto", 3), ("yes", 3), ("2", 2), ("off", 1)):
+        codec.profile["shard"] = mode
+        codec._shard_devices_cached = None
+        assert codec.shard_devices() == want, mode
+
+
+def test_a_mesh_that_cannot_be_built_raises(cpu8):
+    """A deliberate difference: where the devices a codec resolved are
+    gone when it builds its mesh, the sharded launch and the sharded
+    fused op raise ErasureCodeError; the reference returns None and
+    falls back to one device (or the host CRC sweep)."""
+    codec = _codec(shard="8")
+    assert codec.shard_devices() == 8
+    meshmod.force_devices("cpu", 4)
+    data = RNG.integers(0, 256, (4, 8 * 512), dtype=np.uint8)
+    with pytest.raises(ec.ErasureCodeError, match="no 8-device mesh"):
+        codec._matmul_device(codec.matrix, data, n_shard=8)
+    with pytest.raises(ec.ErasureCodeError, match="no 8-device mesh"):
+        codec._csum_op(512, n_shard=8)
+    b = ECBatcher(window_us=10_000_000, max_bytes=8 * 4 * 512)
+    # every writer of the flush gets the error (_run gathers them)
+    with pytest.raises(AssertionError, match="no 8-device mesh"):
+        _burst(b, codec, [data[:, :512]] * 8)
+
+
+def test_sharded_matmul_byte_identical_and_fallback(cpu8):
+    """The sharded folded multiply equals the oracle and the
+    reference's; a column count that does not split into whole lanes
+    per device takes the single-device launch, byte-identical."""
+    codec, ref = _codec(shard="8"), _ref_codec(shard="8")
+    for N in (8 * 512, 8 * 768, 4100, 513):
+        data = RNG.integers(0, 256, (4, N), dtype=np.uint8)
+        before = staging.stage_perf().dump()["ec_stage_h2d_copies"]
+        out = codec.host_sync(codec._matmul_device(codec.matrix, data,
+                                                   n_shard=8))
+        copies = staging.stage_perf().dump()["ec_stage_h2d_copies"] - before
+        assert np.array_equal(out, _oracle_parity(codec, data)), N
+        assert np.array_equal(out, np.asarray(ref._matmul_device(
+            ref.matrix, data, n_shard=8))), N
+        # a host fold lands as one metered copy of a slice a device
+        assert copies == (1 if N % 32 == 0 else 0), N
+    sigs = kernel_profiler().dump()["signatures"]
+    assert "matmul/2x4/L4096/s8/xla" in sigs
+
+
+def test_sharded_encode_burst_identical_to_reference(cpu8):
+    """8 writers through the sharded batcher of each package: one folded
+    launch fanned over the 8 devices, identical parity and statistics."""
+    rng = np.random.default_rng(44)
+    L = 2048
+    pays = [rng.integers(0, 256, (4, L), dtype=np.uint8) for _ in range(8)]
+    port, ref = _codec(shard="8"), _ref_codec(shard="8")
+    pb = ECBatcher(window_us=10_000_000, max_bytes=8 * 4 * L)
+    rb = JaxECBatcher(window_us=10_000_000, max_bytes=8 * 4 * L)
+    got, want = _burst_both(lambda i: pb.encode(port, pays[i]),
+                            lambda i: rb.encode(ref, pays[i]), 8)
+    for data, (p, _), (rp, _) in zip(pays, got, want):
+        assert np.array_equal(p, np.asarray(rp))
+        assert np.array_equal(p, _oracle_parity(port, data))
+    assert pb.stats == rb.stats
+    assert pb.stats["launches"] == 1 and pb.stats["sharded_launches"] == 1
+
+
+def test_sharded_fused_csum_burst_identical_to_reference(cpu8):
+    """A checksummed burst of one length on a sharded pool takes the
+    mesh-sharded fused op in both packages: identical parity, csums
+    (the native sweep's) and statistics; 3 ops pad to a fan-out of 4."""
+    rng = np.random.default_rng(45)
+    L = 4096
+    pays = [rng.integers(0, 256, (4, L), dtype=np.uint8) for _ in range(3)]
+    port, ref = _codec(shard="8"), _ref_codec(shard="8")
+    pb = ECBatcher(window_us=10_000_000, max_bytes=3 * 4 * L)
+    rb = JaxECBatcher(window_us=10_000_000, max_bytes=3 * 4 * L)
+    got, want = _burst_both(
+        lambda i: pb.encode(port, pays[i], with_csums=True),
+        lambda i: rb.encode(ref, pays[i], with_csums=True), 3)
+    for data, (p, c), (rp, rc) in zip(pays, got, want):
+        assert np.array_equal(p, np.asarray(rp))
+        assert np.array_equal(c, np.asarray(rc))
+        assert np.array_equal(c, _oracle_csums(data, p))
+    assert pb.stats == rb.stats
+    assert pb.stats["sharded_launches"] == 1
+    assert f"csum/2x4/L{L}x{4 * L}/s4" in kernel_profiler().dump()[
+        "signatures"]
+
+
+def test_sharded_decode_burst_identical_to_reference(cpu8):
+    """Coalesced degraded reads fanned over the mesh: the same rebuilt
+    bytes and statistics as the reference's sharded batcher."""
+    rng = np.random.default_rng(46)
+    port, ref = _codec(shard="8"), _ref_codec(shard="8")
+    L = 4096
+    stripes = []
+    for _ in range(8):
+        data = rng.integers(0, 256, (4, L), dtype=np.uint8)
+        full = np.concatenate([data, _oracle_parity(port, data)])
+        stripes.append({s: full[s] for s in (0, 2, 3, 4, 5)})
+    pb = ECBatcher(window_us=10_000_000, max_bytes=8 * 5 * L)
+    rb = JaxECBatcher(window_us=10_000_000, max_bytes=8 * 5 * L)
+    got, want = _burst_both(
+        lambda i: pb.decode(port, [0, 1, 2, 3], dict(stripes[i])),
+        lambda i: rb.decode(ref, [0, 1, 2, 3], dict(stripes[i])), 8)
+    for g, w, st in zip(got, want, stripes):
+        for s in range(4):
+            assert np.array_equal(g[s], np.asarray(w[s]))
+    assert pb.stats == rb.stats
+    assert pb.stats["sharded_launches"] == 1
+
+
+def test_sharded_subchunk_and_repair_flushes(cpu8):
+    """CLAY's sub-chunk encode and repair folds pass the fan-out to the
+    codec's folded entry points, and match the reference's sharded
+    batcher byte for byte."""
+    prof = {"k": "4", "m": "2", "d": "5", "shard": "8"}
+    port = ec.factory("clay", {**prof, "device": "cpu"})
+    ref = jax_ec.factory("clay", {**prof, "backend": "jax"})
+    L = port.get_chunk_size(4 * 4096)
+    rng = np.random.default_rng(47)
+    pays = [rng.integers(0, 256, (4, L), dtype=np.uint8) for _ in range(4)]
+    pb = ECBatcher(window_us=10_000_000, max_bytes=4 * 4 * L)
+    rb = JaxECBatcher(window_us=10_000_000, max_bytes=4 * 4 * L)
+    got, want = _burst_both(lambda i: pb.encode(port, pays[i]),
+                            lambda i: rb.encode(ref, pays[i]), 4)
+    for (p, _), (rp, _), data in zip(got, want, pays):
+        assert np.array_equal(p, np.asarray(rp))
+        assert np.array_equal(p, port.encode_chunks(data))
+    assert pb.stats == rb.stats and pb.stats["sharded_launches"] == 1
+    lost = 1
+    planes = port.repair_planes(lost)
+    fulls = [np.concatenate([data, p]) for (p, _), data in zip(got, pays)]
+
+    def subs(i):
+        return {h: fulls[i][h].reshape(port.alpha, -1)[planes]
+                for h in range(port.chunk_count) if h != lost}
+
+    nbytes = 4 * sum(s.nbytes for s in subs(0).values())
+    pb2 = ECBatcher(window_us=10_000_000, max_bytes=nbytes)
+    rb2 = JaxECBatcher(window_us=10_000_000, max_bytes=nbytes)
+    got2, want2 = _burst_both(lambda i: pb2.repair(port, lost, subs(i), L),
+                              lambda i: rb2.repair(ref, lost, subs(i), L),
+                              4)
+    for i in range(4):
+        assert np.array_equal(got2[i], np.asarray(want2[i]))
+        assert np.array_equal(got2[i], fulls[i][lost])
+    assert pb2.stats == rb2.stats and pb2.stats["sharded_launches"] == 1
+
+
+def test_sharded_launch_counters(cpu8):
+    """The ec_batch_sharded_* counters move with a sharded flush: the
+    launch, its fan-out and each device's bytes."""
+    from ceph_tpu_torch.utils.perf import global_perf
+
+    name = "osd.test_sharded_counters"
+    perf = global_perf().create(name)
+    try:
+        codec = _codec(shard="8")
+        L = 2048
+        pays = [RNG.integers(0, 256, (4, L), dtype=np.uint8)
+                for _ in range(2)]
+        b = ECBatcher(window_us=10_000_000, max_bytes=2 * 4 * L,
+                      perf=perf)
+        _burst(b, codec, pays)
+        dump = perf.dump()
+        assert dump["ec_batch_sharded_launches"] == 1
+        # two ops: the fan-out caps at the stripe count
+        assert dump["ec_batch_sharded_devices_per_launch"]["sum"] == 2
+        assert dump["ec_batch_sharded_shard_bytes"]["sum"] == 4 * L
+    finally:
+        global_perf().remove(name)
 
 
 def test_tensor_inputs_fold_on_the_device():

@@ -195,9 +195,10 @@ def test_narrow_plain_folds_match_the_reference(plugin, prof, lost,
     read = []
     real = type(codec).decode_folded_device
 
-    def spy(self, want, avail, stacked):
+    def spy(self, want, avail, stacked, **kw):
+        # the batcher passes its fan-out (n_shard), as the reference's
         read.append((list(avail), tuple(stacked.shape)))
-        return real(self, want, avail, stacked)
+        return real(self, want, avail, stacked, **kw)
 
     monkeypatch.setattr(type(codec), "decode_folded_device", spy)
 

@@ -161,8 +161,8 @@ def test_control_plane_modules_import_alone():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
-    for pkg in ("auth", "compress", "mon", "msg", "parallel", "qos",
-                "slo", "telemetry"):
+    for pkg in ("auth", "compress", "mon", "msg", "qos", "slo",
+                "telemetry"):
         names = {f"ceph_tpu_torch.{pkg}"} | {
             f"ceph_tpu_torch.{pkg}.{f[:-3]}"
             for f in os.listdir(os.path.join(PKG, pkg))
@@ -222,11 +222,66 @@ def test_cluster_entry_module_imports_alone(module):
 
 
 def test_parallel_package_holds_placement_alone():
-    """The port's parallel package imports nothing of the device meshes
-    (the reference's parallel/__init__.py imports mesh and distributed,
-    which is what brings jax into its mon/maps.py)."""
+    """The port's parallel package holds the reference's modules
+    (placement, and the device meshes and distributed steps its
+    __init__.py imports, as the reference's does) and the dry run; the
+    placement module the monitor's maps stand on still imports alone,
+    and none of them brings in jax."""
+    ref = {f for f in os.listdir(os.path.join(REPO, "ceph_tpu", "parallel"))
+           if f.endswith(".py")}
     assert sorted(f for f in os.listdir(os.path.join(PKG, "parallel"))
-                  if f.endswith(".py")) == ["__init__.py", "placement.py"]
+                  if f.endswith(".py")) == sorted(ref | {"dryrun.py"})
+
+
+#: the multi-device slice and the two EC tools, imported one by one in a
+#: fresh interpreter by test_multi_device_modules_import_alone
+MULTI_DEVICE_MODULES = tuple(
+    f"ceph_tpu_torch.{m}" for m in (
+        "parallel", "parallel.placement", "parallel.mesh",
+        "parallel.distributed", "parallel.dcn_worker", "parallel.dryrun",
+        "tools.ec_tool", "tools.ec_consistency"))
+
+
+_RUN_WORKER = r"""
+import runpy, sys
+sys.argv = ["dcn_worker", "--coordinator", "127.0.0.1:1",
+            "--num-processes", "1", "--process-id", "0", "--device", "cpu"]
+try:
+    runpy.run_module("ceph_tpu_torch.parallel.dcn_worker",
+                     run_name="__main__")
+except SystemExit as e:
+    print("exit", e.code)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ceph_tpu")))
+"""
+
+
+def test_multi_device_modules_import_alone():
+    """Importing each module of the multi-device slice, one after
+    another in a fresh interpreter, loads neither jax nor ceph_tpu; the
+    list names every module of ``parallel/``; and ``python -m
+    ceph_tpu_torch.parallel.dcn_worker`` (here a group of one, which it
+    declines after its imports) loads neither.  Its run in a real group
+    reports the same (tests/test_torch_multiprocess_dcn.py)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PROBE_EACH,
+                          *MULTI_DEVICE_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    names = {"ceph_tpu_torch.parallel"} | {
+        f"ceph_tpu_torch.parallel.{f[:-3]}"
+        for f in os.listdir(os.path.join(PKG, "parallel"))
+        if f.endswith(".py") and f != "__init__.py"}
+    assert names == {m for m in MULTI_DEVICE_MODULES
+                     if m.split(".")[1] == "parallel"}
+    out = subprocess.run([sys.executable, "-c", _RUN_WORKER], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == [
+        "exit init_multihost declined a multi-process group", "[]"]
 
 
 def _sources():

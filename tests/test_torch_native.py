@@ -3,9 +3,13 @@ against the JAX package's (ceph_tpu/ops/native.py) on the same seeded
 inputs, and the ``native`` codec backend of the matrix codes: an
 explicit ``auto`` resolves to it, the matrix-code corpus directories
 come out of it byte for byte, and its parity delta matches the JAX
-package's.  Every comparison is byte-exact (tolerance 0)."""
+package's.  Every comparison is byte-exact (tolerance 0).  The port
+builds its copy of the library in its own build directory, under a
+file lock."""
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -298,3 +302,44 @@ def test_native_delta_goes_through_region_mac(monkeypatch):
         bufs.append(parity)
     assert len(calls) == 2
     assert all(np.array_equal(bufs[0][i], bufs[1][i]) for i in (4, 5))
+
+
+# ------------------------------------------------------------ the build
+_LOAD_CHILD = r"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("port_native", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod._BUILD_DIR = sys.argv[2]
+try:
+    print("ok", mod.lib()._name)
+except Exception as e:
+    print("FAIL", e)
+"""
+
+
+def test_the_port_builds_its_own_copy_of_the_library():
+    """The port loads a library built into its own git-ignored build
+    directory, never native/build/, which the JAX package's loader
+    builds and reads without a file lock."""
+    path = native.so_path()
+    assert path == os.path.join(os.path.dirname(CORPUS), "ceph_tpu_torch",
+                                "build", "native", "libcephtpu.so")
+    assert native.lib()._name == path
+    assert "native/build" not in path
+
+
+def test_concurrent_first_loads_see_a_whole_library(tmp_path):
+    """Six processes load the port's library at once from an empty build
+    directory: one builds it under the file lock and every one loads
+    the finished library ("file too short" was the failure of a process
+    that read a library another was still linking)."""
+    src = os.path.abspath(native.__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOAD_CHILD, src, str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(6)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    assert [o.split()[0] for o, _ in outs] == ["ok"] * 6, outs
+    assert os.path.exists(tmp_path / "libcephtpu.so")
