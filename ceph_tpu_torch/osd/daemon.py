@@ -855,6 +855,10 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         self._obj_wfloor = 0
         self._requery_at: dict[tuple, float] = {}
         self._requery_timers: dict[tuple, object] = {}
+        # (pgid, name, shard, target) -> whether a later round wanted it
+        # too: the shard rebuilds a peering round scheduled whose fetch
+        # has not returned (_claim_rebuild)
+        self._rebuilds_out: dict[tuple, bool] = {}
         self._pending_scrubs: dict = {}
         # background deep-scrub state per hosted PG (cursor persists in
         # the PG's scrub meta object; this is only the pacing side)
@@ -4958,6 +4962,9 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         while it was away.  An interval with NO surviving member blocks
         the PG entirely (the reference's Down state) until one revives
         or the membership changes."""
+        with self._pending_lock:
+            # rebuilds planned on the old map: the new rounds plan anew
+            self._rebuilds_out.clear()
         for pool_id, seed, up in self._pools_pgs_for_me():
             if self._primary_of(up) != self.osd_id:
                 pg = PgId(pool_id, seed)
@@ -5511,6 +5518,8 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 if osd != peer:
                     continue
                 for name, v in names.items():
+                    if not self._claim_rebuild(pgid, name, shard, peer):
+                        continue  # an earlier round's rebuild is on it
                     self._recovery_op(
                         pgid, peer,
                         lambda name=name, shard=shard, v=v:
@@ -5693,18 +5702,24 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 for name, version in names.items():
                     if peer_inv.get((name, shard), -1) >= version:
                         continue  # peer current for its shard
+                    scheduled += 1
+                    if not self._claim_rebuild(pgid, name, shard, peer):
+                        continue  # an earlier round's rebuild is on it
                     self._recovery_op(
                         pgid, peer,
                         lambda name=name, shard=shard, version=version:
                         self._rebuild_shard(pgid, name, shard, peer,
                                             version),
                         nbytes=self._rec_weight(pgid, name))
-                    scheduled += 1
             elif osd == self.osd_id:
                 # the peer's inventory may reveal objects where MY OWN
                 # shard is missing/stale (e.g. primary revived empty)
                 for name, version in names.items():
                     if my_inv.get((name, shard), -1) >= version:
+                        continue
+                    scheduled += 1
+                    if not self._claim_rebuild(pgid, name, shard,
+                                               self.osd_id):
                         continue
                     self._recovery_op(
                         pgid, None,
@@ -5712,8 +5727,35 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                         self._rebuild_shard(pgid, name, shard,
                                             self.osd_id, version),
                         nbytes=self._rec_weight(pgid, name))
-                    scheduled += 1
         return scheduled
+
+    def _claim_rebuild(self, pgid, name: str, shard: int,
+                       target: int) -> bool:
+        """Whether a peering round schedules the rebuild of ``name``'s
+        ``shard`` onto ``target``: not while an earlier round's rebuild
+        of it is queued or its fetch is out.  A recovering primary
+        re-queries its PG every 0.25 s and each member's inventory reply
+        runs _recover_ec over every shard still missing, so without the
+        claim a PG of N missing objects fetches each of them O(N) times
+        (N^2 whole-shard reads: an RBD image's objects all place in one
+        PG).  The fetch's return gives the claim back (_release_rebuild;
+        the osd_op_timeout sweep returns a fetch that never completes),
+        and a map change drops every claim (_start_recovery)."""
+        key = (pgid, name, shard, target)
+        with self._pending_lock:
+            if key in self._rebuilds_out:
+                self._rebuilds_out[key] = True  # see _rebuild_shard
+                return False
+            self._rebuilds_out[key] = False
+        return True
+
+    def _release_rebuild(self, pgid, name: str, shard: int,
+                         target: int) -> bool:
+        """The rebuild's fetch is back: give its claim back, and say
+        whether a later round wanted the rebuild while it was out."""
+        with self._pending_lock:
+            return self._rebuilds_out.pop((pgid, name, shard, target),
+                                          False)
 
     def _reconcile_ec(self, pgid: PgId, pool, up,
                       lc_authority: bool = False) -> None:
@@ -6001,9 +6043,12 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         # on_done runs
         tctx = self._rec_trace(pgid)
 
+        retried = []
+
         def retry_wide() -> None:
             # narrow read insufficient (stale/missing group member):
             # one wide retry — the full fan-out sees every holder
+            retried.append(True)
             self.perf.inc("recovery_wide_retries")
             self._rebuild_shard(pgid, name, shard, peer, version,
                                 force=force, wide=True)
@@ -6015,6 +6060,20 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                     else len(cand) >= codec.k)
 
         def on_done(pr) -> None:
+            # a round that wanted this rebuild while the fetch was out
+            # knew more members' inventories than the fetch's fan did:
+            # if the fetch fell short, rebuild again as that round would
+            wanted = self._release_rebuild(pgid, name, shard, peer)
+            if not finish(pr) and wanted and not retried and \
+                    self._claim_rebuild(pgid, name, shard, peer):
+                self._recovery_op(
+                    pgid, None if peer == self.osd_id else peer,
+                    lambda: self._rebuild_shard(pgid, name, shard, peer,
+                                                version),
+                    nbytes=self._rec_weight(pgid, name))
+
+        def finish(pr) -> bool:
+            """Push the rebuilt shard; whether it was pushed."""
             if pr is None or not enough(pr.chunks):
                 # not enough survivors NOW; a narrow read retries wide,
                 # else a later peering/requery round retries (never
@@ -6023,7 +6082,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                     retry_wide()
                 else:
                     self._requery_pg(pgid)
-                return
+                return False
             chunks = pr.chunks
             push_version = version
             if pr.shard_vers:
@@ -6043,10 +6102,10 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                     push_version = vmax
                 elif fetch is not None:
                     retry_wide()
-                    return
+                    return False
                 else:
                     self._requery_pg(pgid, force_full=True)
-                    return  # no consistent set yet; the requery retries
+                    return False  # no consistent set yet: requery retries
             if shard in chunks and not force:
                 rebuilt = chunks[shard]
             else:
@@ -6056,13 +6115,13 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                     if force else chunks
                 if not enough(chunks):
                     self._requery_pg(pgid)
-                    return
+                    return False
                 try:
                     out = self._ec_decode(codec, [shard], dict(chunks))
                 except Exception:  # noqa: BLE001 - narrow set fell short
                     if fetch is not None:
                         retry_wide()
-                        return
+                        return False
                     raise
                 rebuilt = out[shard]
                 self.perf.inc("recovery_fetch_bytes",
@@ -6089,6 +6148,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                         {name: (push_version, rebuilt.tobytes(), total,
                                 omap, extra)},
                         force=force, trace=tctx))
+            return True
 
         pr = _PendingRead(None, 0, pgid.pool, name,
                           total_shards=sum(1 for u in fan
@@ -6199,6 +6259,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                                 wide=True)
 
         def on_done(pr) -> None:
+            self._release_rebuild(pgid, name, shard, peer)
             if pr is None or not all(
                     h in pr.chunks and pr.chunks[h].size == per_helper
                     for h in helpers):

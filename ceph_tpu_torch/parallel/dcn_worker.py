@@ -120,7 +120,7 @@ def _free_port() -> int:
 
 
 def launch(num_processes: int = 2, devices_per_host: int = 4,
-           device: str = "cpu", timeout: float = 120.0) -> list[dict]:
+           device: str = "cuda", timeout: float = 120.0) -> list[dict]:
     """Run the worker in ``num_processes`` children on a localhost
     address (each process with ``devices_per_host`` logical devices of
     ``device``); returns each worker's result line.  A worker that fails

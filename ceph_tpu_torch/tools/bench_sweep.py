@@ -10,9 +10,14 @@ tools/ec_benchmark ``--json``, on the ``native`` backend and on
 which drive tools/bench_root's modes (the twin of the reference's
 repo-root bench.py) and keep the keys each row's ``extract`` names.
 Rows that share a tool and arguments share one child run per sweep.
-Every child gets ``--device``.  The reference's ``--multichip`` blob
-has no twin here; the multi-device dry run it wraps is
-``python -m ceph_tpu_torch.parallel.dryrun``.
+Every child gets ``--device``.  ``--multichip [PATH]`` writes the
+reference's MULTICHIP-style blob instead of sweeping: the multi-device
+dry run (``python -m ceph_tpu_torch.parallel.dryrun --device``, in
+place of the reference's ``__graft_entry__.dryrun_multichip``) and the
+``ec_batch_sharded`` row's bench (``--ec-batch --no-overhead``: the
+sharded burst's numbers, without the tracing and exemplar overhead
+legs, whose 5 % gates compare host times and are the
+``trace_overhead`` row's).
 
 The state file lies under the git-ignored ``ceph_tpu_torch/build/``
 (``BENCH_SWEEP.json``, or ``BENCH_SWEEP_CPU.json`` for ``--device cpu``,
@@ -23,6 +28,7 @@ hold a result unless ``--fresh`` or ``--only`` is given.
     python -m ceph_tpu_torch.tools.bench_sweep               # resume/fill
     python -m ceph_tpu_torch.tools.bench_sweep --only headline_1M_b64
     python -m ceph_tpu_torch.tools.bench_sweep --device cpu --fresh
+    python -m ceph_tpu_torch.tools.bench_sweep --multichip out.json
 """
 
 from __future__ import annotations
@@ -260,6 +266,49 @@ def write_state(path: str, state: dict) -> None:
     os.replace(tmp, path)
 
 
+#: the bench_root arguments of the multichip blob's sharded-batcher leg
+MULTICHIP_BENCH = ["--ec-batch", "--no-overhead"]
+
+
+def emit_multichip(path: str, device: str, n_devices: int = 8,
+                   timeout: float = 600.0) -> int:
+    """Write a MULTICHIP-style JSON blob to ``path`` (the reference's
+    keys): the dry run on ``n_devices`` logical devices of ``device``
+    (the tail of its output from its summary line on) and the sharded
+    batcher's bench row.  Returns 0 iff both ran clean."""
+    blob = {"n_devices": n_devices, "rc": 0, "ok": True,
+            "skipped": False, "tail": ""}
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.parallel.dryrun",
+             "--devices", str(n_devices), "--device", device],
+            capture_output=True, text=True, timeout=timeout, cwd=REPO)
+        blob["rc"] = proc.returncode
+        blob["ok"] = proc.returncode == 0
+        if proc.returncode == 0:
+            out = proc.stdout.strip()
+            i = out.rfind("dryrun_multichip")
+            blob["tail"] = (out[i:] if i >= 0
+                            else (out.splitlines() or [""])[-1]) + "\n"
+        else:
+            blob["tail"] = (proc.stdout + "\n" + proc.stderr)[-2000:]
+    except subprocess.TimeoutExpired:
+        blob.update(rc=-1, ok=False,
+                    tail=f"dryrun timeout after {timeout:.0f}s")
+    bench = run_config({"id": "ec_batch_sharded", "tool": "bench_root",
+                        "argv": MULTICHIP_BENCH}, timeout, device)
+    blob["ec_batch_sharded"] = bench.get("result", bench)
+    if "error" in bench:
+        blob["ok"] = False
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(blob, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, path)
+    print(json.dumps({"multichip": path, "ok": blob["ok"]}))
+    return 0 if blob["ok"] else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--fresh", action="store_true",
@@ -269,7 +318,20 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=600.0,
                    help="per-config subprocess timeout (s)")
     p.add_argument("--retries", type=int, default=2)
+    p.add_argument("--multichip", nargs="?",
+                   const="MULTICHIP_BATCH.json", default=None,
+                   metavar="PATH",
+                   help="emit a MULTICHIP-style JSON blob (the dry run "
+                        "+ the sharded batcher's bench) instead of "
+                        "sweeping; a relative PATH is under "
+                        "ceph_tpu_torch/build/")
     args = p.parse_args(argv)
+
+    if args.multichip:
+        path = args.multichip if os.path.isabs(args.multichip) \
+            else os.path.join(BUILD, args.multichip)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return emit_multichip(path, args.device, timeout=args.timeout)
 
     path = STATE[args.device]
     state: dict = {}

@@ -22,10 +22,8 @@ reordering/retyping existing fields is not — the check fails, which is
 the point.  After a deliberate, justified format break, regenerate
 with --create and say so in the commit.
 
-The port holds the archive the JAX package wrote.  Two of its structs
-belong to a module the port does not have yet (``PENDING``): ``check``
-reports each such archived file by name with the module it waits for,
-and ``--check`` prints them, so no file is passed over silently.
+The port holds the archive the JAX package wrote and replays all of
+it: every archived file has its sample here.
 
 Usage:
     python -m ceph_tpu_torch.tools.dencoder --create [--base corpus_wire/]
@@ -120,22 +118,15 @@ def message_samples() -> dict:
     }
 
 
-#: struct name -> the module of ``ceph_tpu`` its sample waits for: the
-#: archived ``struct_<name>.bin`` files the port cannot decode yet
-PENDING = {
-    "SnapRecord": "services.rbd",
-    "ImageHeader": "services.rbd",
-}
-
-
 def struct_samples() -> dict:
     """name -> (instance, decode_bytes callable) for the versioned
     non-message structs that cross durability or wire boundaries (all
-    of the JAX package's but those in ``PENDING``)."""
+    of the JAX package's)."""
     from ..auth.cephx import Ticket
     from ..mon.maps import OSDMap, OsdInfo, PoolSpec
     from ..osd.intervals import Interval, PastIntervals
     from ..osd.pglog import LogEntry
+    from ..services.rbd import ImageHeader, SnapRecord
 
     pool = PoolSpec(1, "data", "ec", 6, 5, 16,
                     {"plugin": "jerasure", "k": "4", "m": "2"},
@@ -165,16 +156,21 @@ def struct_samples() -> dict:
         "Ticket": (Ticket("client.a", "osd", "allow rw pool=p",
                           1234567890123, 5, b"n" * 16, b"s" * 32),
                    Ticket.decode_bytes),
+        "SnapRecord": (SnapRecord(4, "snap1", 1 << 20, [1, 5]),
+                       SnapRecord.decode_bytes),
+        "ImageHeader": (ImageHeader(1 << 22, 1 << 20, 65536, 4,
+                                    snap_seq=4,
+                                    snaps=[SnapRecord(4, "s", 1 << 20)],
+                                    features=1),
+                        ImageHeader.decode_bytes),
     }
 
 
 class Report(NamedTuple):
-    """What ``check`` found: the archived files it replayed, the
-    problems (empty = compatible), and file -> the module each archived
-    file it could not replay waits for."""
+    """What ``check`` found: the archived files it replayed and the
+    problems (empty = compatible)."""
     checked: list
     problems: list
-    pending: dict
 
 
 def _msg_blob(msg) -> bytes:
@@ -199,14 +195,12 @@ def create(base: str) -> int:
         with open(os.path.join(base, f"struct_{name}.bin"), "wb") as f:
             f.write(obj.encode_bytes())
         n += 1
-    print(f"archived {n} wire blobs under {base} (not the pending "
-          f"{', '.join(PENDING)})")
+    print(f"archived {n} wire blobs under {base}")
     return 0
 
 
 def check(base: str) -> Report:
-    """Replay-decode every archived blob the port has a sample for, and
-    name each archived file of a ``PENDING`` struct with its module."""
+    """Replay-decode every archived blob against its sample."""
     checked: list[str] = []
     problems: list[str] = []
     samples = message_samples()
@@ -253,10 +247,7 @@ def check(base: str) -> Report:
         if got.encode_bytes() != obj.encode_bytes():
             problems.append(f"{name}: decoded fields differ from the "
                             f"canonical sample")
-    pending = {f"struct_{name}.bin": module
-               for name, module in PENDING.items()
-               if os.path.exists(os.path.join(base, f"struct_{name}.bin"))}
-    return Report(checked, problems, pending)
+    return Report(checked, problems)
 
 
 def main() -> int:
@@ -269,14 +260,11 @@ def main() -> int:
     if args.create:
         return create(args.base)
     report = check(args.base)
-    for name, module in sorted(report.pending.items()):
-        print(f"PENDING: {name} waits for {module}")
     if report.problems:
         for what in report.problems:
             print(f"INCOMPATIBLE: {what}", file=sys.stderr)
         return 1
-    print(f"wire corpus compatible ({len(report.checked)} blobs checked, "
-          f"{len(report.pending)} pending)")
+    print(f"wire corpus compatible ({len(report.checked)} blobs checked)")
     return 0
 
 

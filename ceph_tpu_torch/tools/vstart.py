@@ -211,9 +211,11 @@ class MiniCluster:
     def spawn_osd_process(self, osd_id: int, store: str = "memstore",
                           store_path: str | None = None,
                           cfg_overrides: dict | None = None,
-                          bind_ip: str | None = None):
+                          bind_ip: str | None = None,
+                          env: dict | None = None):
         """Boot an OSD as a REAL child process over TCP (the multi-daemon
-        vstart.sh mode).  Requires transport='tcp'.  Returns the Popen;
+        vstart.sh mode).  Requires transport='tcp'.  ``env`` is set over
+        this process's environment in the child's.  Returns the Popen;
         kill it with .terminate()/.kill() like a thrasher would."""
         import json as _json
         import os
@@ -245,10 +247,10 @@ class MiniCluster:
         # the child must find the package regardless of caller cwd
         pkg_root = os.path.dirname(os.path.dirname(
             os.path.abspath(ceph_tpu_torch.__file__)))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH",
-                                                            "")
-        proc = subprocess.Popen(argv, env=env)
+        child_env = {**os.environ, **(env or {})}
+        child_env["PYTHONPATH"] = pkg_root + os.pathsep + child_env.get(
+            "PYTHONPATH", "")
+        proc = subprocess.Popen(argv, env=child_env)
         self.procs[osd_id] = proc
         return proc
 

@@ -1,11 +1,14 @@
 """The port's sweep tool (tools/bench_sweep.py): its BASELINE and
 bench_root rows are the reference's, rows of one child share its run,
 and its state file is written atomically, with a stub child in place of
-a real bench."""
+a real bench; ``--multichip PATH --device cpu`` writes the reference's
+blob from the port's dry run and sharded batcher bench."""
 
+import io
 import json
 import os
 import sys
+from contextlib import redirect_stdout
 
 from ceph_tpu.tools import bench_sweep as ref_sweep
 from ceph_tpu_torch.tools import bench_sweep
@@ -128,3 +131,42 @@ def test_state_is_written_atomically_and_resumes(tmp_path, monkeypatch,
     assert summary["skipped"] == 1 and summary["failed"] == 1
     assert summary["measured_total"] == n - 1
     assert not os.path.exists(paths["cuda"])
+
+
+def test_multichip_blob(tmp_path):
+    """``bench_sweep --multichip PATH --device cpu``: the reference's
+    blob keys, ok, the dry run's summary with its three digests (the
+    repo's record: MULTICHIP_r05.json), and the sharded batcher's row."""
+    path = tmp_path / "multichip.json"
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = bench_sweep.main(["--multichip", str(path), "--device",
+                               "cpu", "--timeout", "300"])
+    blob = json.loads(path.read_text())
+    assert rc == 0, blob
+    assert json.loads(buf.getvalue().strip().splitlines()[-1]) == {
+        "multichip": str(path), "ok": True}
+    assert set(blob) == {"n_devices", "rc", "ok", "skipped", "tail",
+                         "ec_batch_sharded"}
+    assert (blob["n_devices"], blob["rc"], blob["ok"], blob["skipped"]) \
+        == (8, 0, True, False)
+    assert blob["tail"].startswith("dryrun_multichip ok")
+    for digest in ("digest=1561950", "hdigest=1568446",
+                   "digest 1571818"):
+        assert digest in blob["tail"]
+    row = blob["ec_batch_sharded"]
+    assert row["digest_verified"] is True and row["wall_s"] > 0
+
+
+def test_multichip_relative_path_lies_in_the_build_directory(monkeypatch):
+    """A relative ``--multichip`` path (and the bare flag's default) is
+    under ceph_tpu_torch/build/, never the repo root's record."""
+    seen = []
+    monkeypatch.setattr(bench_sweep, "emit_multichip",
+                        lambda path, device, **kw: seen.append(
+                            (path, device)) or 0)
+    assert bench_sweep.main(["--multichip", "--device", "cpu"]) == 0
+    assert bench_sweep.main(["--multichip", "x.json"]) == 0
+    assert seen == [
+        (os.path.join(bench_sweep.BUILD, "MULTICHIP_BATCH.json"), "cpu"),
+        (os.path.join(bench_sweep.BUILD, "x.json"), "cuda")]

@@ -524,7 +524,7 @@ def test_recorded_flushes_sees_each_fold_kind_and_lets_go():
 
 def test_cluster_phase_rehearsal_on_cpu(capsys):
     """Phase 16's host steps at full size with device=cpu: the wire
-    corpus (53 checked, the two pending named), three monitors in a
+    corpus (all 55 checked), three monitors in a
     quorum, the tpu pool created from a backend=torch profile with no
     launch, 96 boots committed, the map pushed over TCP loopback in
     secure mode and its PG-mapping digest equal to CLUSTER_DIGEST; the
@@ -534,9 +534,7 @@ def test_cluster_phase_rehearsal_on_cpu(capsys):
                                       np.random.default_rng(9),
                                       encode_L=64 << 10)
     out = capsys.readouterr().out
-    assert "53 files checked" in out
-    for name in chip_smoke.DENCODER_PENDING:
-        assert name in out
+    assert "wire corpus: 55 files checked\n" in out
     assert "96 OSDs on 12 hosts, pool ecpool ec size 11 pg_num 1024" in out
     assert "PG-mapping digest matches" in out
     assert counts["plain"] > 0
@@ -852,3 +850,105 @@ def test_mesh_check_refuses_a_device_with_no_region_kernel():
         res["device_launches"][(3, c)] = 0
     with pytest.raises(AssertionError, match="logical device 3"):
         chip_smoke.check_mesh(counts, res)
+
+
+# ------------------------------------------------------------ phase 20
+#: phase 20 (b) at a small size: 8 objects of 256 KiB, 4 threads, the
+#: gateways at 128 KiB a request, in 8 PGs on the CPU
+SMALL_SERVICES = dict(image=2 << 20, object_size=256 << 10, threads=4,
+                      gateway=512 << 10, request=128 << 10,
+                      overwrites=64, snap_overwrites=16, pg_num=8)
+
+
+def test_services_phase_rehearsal_on_cpu(capsys):
+    """Phase 20 on the CPU: the port's whole scorecard passes its fifteen
+    checks, and the image leg at a small size writes through the Image
+    API, NBD and NVMe/TCP, overwrites 4 KiB pieces (the parity-delta
+    route), snapshots, loses two OSDs and reads head, an NBD range and
+    the snapshot back byte-exact while recovery rebuilds; the plain
+    versions ran and no kernel did, which check_services must
+    refuse."""
+    counts, res = chip_smoke.phase_services(
+        torch.device("cpu"), np.random.default_rng(5), **SMALL_SERVICES)
+    out = capsys.readouterr().out
+    assert "[services] scorecard: rc 0, 15 checks" in out
+    assert "[services] image 2 MiB in 8 objects: Image writes" in out
+    sc, rbd = res["scorecard"], res["rbd"]
+    assert sc["rc"] == 0 and len(sc["checks"]) == 15
+    assert {mark for _n, mark, _d in sc["checks"]} == {"PASS"}
+    assert sc["checks"][-1][0] == "kernel parity (fused encode+crc on cpu)"
+    routes = rbd["routes"]
+    assert routes["full_stripe"] >= 8 + 2 * 4
+    assert routes["parity_delta"] > 0
+    assert rbd["snap_ok"] and rbd["lost_shards"] > 0
+    assert rbd["degraded_folds"]["decode"][0] > 0
+    assert rbd["faults"] == {"op_timeouts": 0, "dropped": 0}
+    assert counts["plain"] == sc["counts"]["plain"] + \
+        rbd["counts"]["plain"] > 0
+    with pytest.raises(AssertionError, match="no region kernel launched "
+                                             "on the scorecard"):
+        chip_smoke.check_services(counts, res)
+
+
+def services_result(**over) -> tuple[dict, dict]:
+    """Counts and results of a phase 20 that check_services accepts."""
+    region = {"gf_bitterm": 4, "gf_bitxor": 2, "gf_bitmm": 60,
+              "gf_sched_xor": 0, "crc32c_chunks": 40, "plain": 0}
+    sc_counts = dict(region)
+    checks = [(f"check {i}", "PASS", "0.1s") for i in range(15)]
+    res = {"scorecard": {"rc": 0, "checks": checks, "counts": sc_counts},
+           "rbd": {"write": dict(region, fused=30),
+                   "degraded": dict(region),
+                   "faults": {"op_timeouts": 0, "dropped": 0}}}
+    counts = {c: 2 * n for c, n in region.items()}
+    for key, value in over.items():
+        where, _, name = key.partition("__")
+        if where == "counts":
+            counts[name] = value
+        elif where == "scorecard":
+            if name == "check":
+                checks[3] = ("check 3", "FAIL", "AssertionError()")
+            else:
+                sc_counts[name] = value
+        else:
+            res["rbd"][where][name] = value
+    return counts, res
+
+
+@pytest.mark.parametrize("fault,match", [
+    ({"counts__plain": 2}, "a plain version ran 2"),
+    ({"scorecard__plain": 1}, "a plain version ran 1 times on the "
+                              "scorecard"),
+    ({"scorecard__check": True}, "failed \\['check 3'\\]"),
+    ({"scorecard__gf_bitterm": 0, "scorecard__gf_bitxor": 0,
+      "scorecard__gf_bitmm": 0}, "no region kernel launched on the "
+                                 "scorecard"),
+    ({"scorecard__crc32c_chunks": 0}, "G1 never launched on the "
+                                      "scorecard"),
+    ({"write__gf_bitterm": 0, "write__gf_bitxor": 0,
+      "write__gf_bitmm": 0}, "no region kernel launched in the image's "
+                             "writes"),
+    ({"write__crc32c_chunks": 0}, "no G1 launch in the image's fused"),
+    ({"degraded__gf_bitterm": 0, "degraded__gf_bitxor": 0,
+      "degraded__gf_bitmm": 0}, "no region kernel launched in the "
+                                "degraded reads"),
+    ({"faults__op_timeouts": 1}, "1 ops timed out"),
+    ({"faults__dropped": 4}, "4 messages dropped"),
+])
+def test_services_check_refuses_each_fault(fault, match):
+    chip_smoke.check_services(*services_result())
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_services(*services_result(**fault))
+
+
+def test_services_phase_sizes():
+    """Phase 20 (b)'s sizes: an image of 512 MiB in rbd's 4 MiB objects
+    on phase 17's cluster and pool, 64 MiB through each gateway at 1 MiB
+    a request, 2048 and 256 overwrites of 4 KiB, two OSDs lost."""
+    cfg = chip_smoke.SERVICES
+    assert cfg["image"] // cfg["object_size"] == 128
+    assert cfg["object_size"] == chip_smoke.OBJECT_SIZE == 4 << 20
+    for key in ("osds", "pg_num", "k", "m", "lost"):
+        assert cfg[key] == chip_smoke.OSD_PHASE[key]
+    assert (cfg["gateway"], cfg["request"]) == (64 << 20, 1 << 20)
+    assert (cfg["overwrites"], cfg["snap_overwrites"]) == (2048, 256)

@@ -7,6 +7,7 @@ Exact comparisons; each child has a timeout."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from ceph_tpu.models.stripe_codec import StripeCodec as RefStripeCodec
 from ceph_tpu.parallel import DistributedStripeEC as RefDistributedStripeEC
@@ -80,3 +81,13 @@ def test_a_failing_worker_fails_the_launch(monkeypatch):
     with pytest.raises(AssertionError, match="still running"):
         dcn_worker.launch(2, 2, "cpu", timeout=10)
     assert started and all(p.poll() is not None for p in started)
+
+
+def test_launch_defaults_to_the_card():
+    """``launch`` with no ``device`` asks its workers for the card: with
+    none they fail, and the launch raises rather than running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("the default asks for the card, which is here")
+    with pytest.raises(AssertionError, match="torch.cuda.is_available"):
+        dcn_worker.launch(2, 2, timeout=30)

@@ -110,36 +110,34 @@ def test_struct_crosses_both_ways(name):
 def test_port_samples_are_the_references_less_the_pending_structs():
     assert set(PORT_MSGS) == set(REF_MSGS)
     ref_structs = set(ref_dencoder.struct_samples())
-    assert set(STRUCT_NAMES) == ref_structs - set(port_dencoder.PENDING)
-    assert sorted(port_dencoder.PENDING) == ["ImageHeader", "SnapRecord"]
+    assert set(STRUCT_NAMES) == ref_structs
+    assert not hasattr(port_dencoder, "PENDING")
+    assert {"ImageHeader", "SnapRecord"} <= set(STRUCT_NAMES)
 
 
-def test_corpus_checks_53_files_and_names_the_two_pending():
-    """The port replays every archived file the reference replays but
-    the two structs of a module not yet ported, each reported with the
-    module it waits for; the reference passes the same corpus."""
+def test_corpus_checks_55_files_and_none_pending():
+    """The port replays every archived file the reference replays, the
+    two structs of services.rbd among them, and skips none;
+    the reference passes the same corpus."""
     assert ref_dencoder.check(CORPUS) == []
     report = port_dencoder.check(CORPUS)
     assert report.problems == []
-    assert len(report.checked) == 53
-    assert "struct_LogEntry.bin" in report.checked
-    assert report.pending == {
-        "struct_SnapRecord.bin": "services.rbd",
-        "struct_ImageHeader.bin": "services.rbd",
-    }
-    assert sorted(report.checked + list(report.pending)) == \
-        sorted(os.listdir(CORPUS))
+    assert len(report.checked) == 55
+    for name in ("struct_LogEntry.bin", "struct_SnapRecord.bin",
+                 "struct_ImageHeader.bin"):
+        assert name in report.checked
+    assert sorted(report.checked) == sorted(os.listdir(CORPUS))
 
 
-def test_corpus_check_cli_prints_the_pending_files(capsys, monkeypatch):
+def test_corpus_check_cli_prints_an_empty_pending_list(capsys,
+                                                       monkeypatch):
     monkeypatch.setattr("sys.argv", ["dencoder", "--check",
                                      "--base", CORPUS])
     assert port_dencoder.main() == 0
     out = capsys.readouterr().out
-    for name in ("struct_SnapRecord.bin", "struct_ImageHeader.bin"):
-        assert f"PENDING: {name} waits for" in out
+    assert "PENDING" not in out
     assert "struct_LogEntry.bin" not in out
-    assert "53 blobs checked, 2 pending" in out
+    assert "55 blobs checked)" in out
 
 
 class _Sink:
