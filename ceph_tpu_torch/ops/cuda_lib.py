@@ -43,6 +43,9 @@ _LIB: ctypes.CDLL | None = None
 _SMEM: dict[object, int] = {}
 #: {"seconds": float, "ptxas": str} of the build this process ran, if any
 BUILD_LOG: dict = {}
+#: {"seconds": float, "built": bool} of this process's first load of the
+#: library: the seconds of the staleness check, any build and the dlopen
+LOAD_LOG: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -136,7 +139,8 @@ def lib() -> ctypes.CDLL:
         hit = _LIB
     if hit is not None:
         return hit
-    build()
+    t0 = time.perf_counter()
+    built = build()
     with _LOCK:
         if _LIB is None:
             hit = ctypes.CDLL(so_path())
@@ -145,6 +149,8 @@ def lib() -> ctypes.CDLL:
                 f.restype = res
                 f.argtypes = args
             _LIB = hit
+            LOAD_LOG.update(seconds=time.perf_counter() - t0,
+                            built=built is not None)
         return _LIB
 
 

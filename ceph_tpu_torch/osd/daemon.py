@@ -94,6 +94,9 @@ class _PendingWrite:
     span: object = None  # op span closed when the client reply leaves
     qphase: int = 0  # mclock phase served under (rides the reply)
     pq_ctx: object = None  # perf-query booking (async reply drains)
+    # the OSDs the op's sub-writes went to: a map that marks one of them
+    # down fails the op at once (_reset_ops_on_down)
+    members: tuple = ()
     stamp: float = field(default_factory=time.time)
 
 
@@ -131,6 +134,10 @@ class _PendingRead:
     # hot-tier admission fence — bytes fetched before a write landed
     # must never be admitted as current
     wmarker: int = 0
+    # shard -> the OSD its sub-read went to, until it answers: a map that
+    # marks that OSD down answers for it, as a failed read
+    # (_reset_ops_on_down)
+    asked: dict = field(default_factory=dict)
     stamp: float = field(default_factory=time.time)
 
 
@@ -799,6 +806,12 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         # device, on the device of a torch pool's codec: an OSD that
         # serves only native or numpy pools never stages a byte
         self._ec_arena_lock = threading.Lock()
+        #: the last ops the osd_op_timeout sweep failed, described
+        self.timed_out_ops: collections.deque = collections.deque(
+            maxlen=32)
+        #: ops that waited on an OSD a map marked down, answered at once
+        #: (_reset_ops_on_down: writes EAGAIN, sub-reads as failed reads)
+        self.ops_reset_on_down = 0
         self._ec_cache = ECExtentCache(
             on_evict=lambda: self.perf.inc("ec_read_tier_evict"))
         # hot-read tier admission state (zipf-aware second-hit
@@ -1405,6 +1418,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                          hb_addr=net.addr_of(self.hb_messenger.name)))
         self._ensure_collections()
         self._reservation_map_change(newmap)
+        self._reset_ops_on_down(newmap)
         if old is None or newmap.epoch > old.epoch:
             self._split_pgs(old, newmap)
             self._merge_pgs(old, newmap)
@@ -1431,6 +1445,54 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         for pgid, thunks in rescued:
             for t, nb in thunks:
                 self._recovery_enqueue(pgid, t, nb)
+
+    def _reset_ops_on_down(self, osdmap: OSDMap | None) -> None:
+        """An op waiting on an OSD that ``osdmap`` marks down would wait
+        out the osd_op_timeout sweep (Ceph resets a PG's in-flight ops at
+        an interval change instead).  A write whose sub-write went there
+        fails NOW with EAGAIN, which the client retries on the new map;
+        a read's sub-read there is answered as a failed read, so the read
+        completes on what the live members send, as it would had that
+        OSD refused.  Run on every map, and on every sweep for an op
+        registered on the map before (its op thread read the map as it
+        changed)."""
+        if osdmap is None:
+            return
+        down = {o for o, info in osdmap.osds.items() if not info.up}
+        if not down:
+            return
+        reset, lost = [], []
+        with self._pending_lock:
+            for tid, pw in list(self._pending_writes.items()):
+                if down.intersection(pw.members):
+                    self._pending_writes.pop(tid, None)
+                    reset.append(pw)
+            for tid, pr in list(self._pending_reads.items()):
+                lost += [(tid, shard) for shard, osd in pr.asked.items()
+                         if osd in down]
+        if reset or lost:
+            with self._pending_lock:
+                self.ops_reset_on_down += len(reset) + len(
+                    {tid for tid, _s in lost})
+        self._fail_writes(reset, EAGAIN, osdmap.epoch)
+        for tid, shard in lost:
+            self._on_shard_read(tid, shard, EIO, b"", {})
+
+    def _fail_writes(self, pws: list, result: int, epoch: int) -> None:
+        """Answer the clients of writes taken out of _pending_writes with
+        ``result``: each may have landed on some members only, so it is
+        noted as a (possibly torn) write and its cached extents dropped,
+        and its object lock goes to the next op."""
+        for pw in pws:
+            self._note_obj_write(pw.lock_key)  # possibly-torn write
+            if pw.lock_key is not None:
+                self._ec_cache.invalidate(*pw.lock_key)
+            if pw.pq_ctx is not None:
+                pw.pq_ctx.finish(0)
+            self.messenger.send_message(
+                pw.client, MOSDOpReply(pw.client_tid, result,
+                                       version=pw.version, epoch=epoch))
+            self._obj_unlock(pw.lock_key)
 
     def _notify_demoted(self, old: OSDMap | None) -> None:
         """If I hold objects for PGs I am no longer an up member of, tell
@@ -1802,7 +1864,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             return
         # +1 ack for the primary's own store commit (the barrier below)
         self._pending_writes[tid] = _PendingWrite(
-            m.client, m.tid, len(peers) + 1, version)
+            m.client, m.tid, len(peers) + 1, version, members=tuple(peers))
         self._pending_writes[tid].span = getattr(m, '_span', None)
         self._pending_writes[tid].qphase = getattr(m, '_qos_phase', 0)
         self._pending_writes[tid].pq_ctx = getattr(m, '_pq_ctx', None)
@@ -1896,7 +1958,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             return
         # +1 ack: the local whiteout/remove commit (barrier below)
         self._pending_writes[tid] = _PendingWrite(
-            m.client, m.tid, len(peers) + 1, version)
+            m.client, m.tid, len(peers) + 1, version, members=tuple(peers))
         self._pending_writes[tid].span = getattr(m, '_span', None)
         self._pending_writes[tid].qphase = getattr(m, '_qos_phase', 0)
         self._pending_writes[tid].pq_ctx = getattr(m, '_pq_ctx', None)
@@ -2650,7 +2712,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                      if o is not None and o != self.osd_id)
         if remote:
             pw = _PendingWrite(m.client, m.tid, remote, version,
-                               lock_key=lock_key)
+                               lock_key=lock_key, members=tuple(up))
             pw.span = getattr(m, '_span', None)
             pw.qphase = getattr(m, '_qos_phase', 0)
             pw.pq_ctx = getattr(m, '_pq_ctx', None)
@@ -2748,7 +2810,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             # +1 ack for the primary's own store commit (the barrier
             # registered after the local tallies below).
             pw = _PendingWrite(m.client, m.tid, remote + 1, version,
-                               lock_key=lock_key)
+                               lock_key=lock_key, members=tuple(up))
             pw.span = getattr(m, '_span', None)
             pw.qphase = getattr(m, '_qos_phase', 0)
             pw.pq_ctx = getattr(m, '_pq_ctx', None)
@@ -2876,7 +2938,8 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 # registered before any send (sharded-dispatch rule);
                 # +1 ack for the primary's own store commit
                 pw = _PendingWrite(m.client, m.tid, remote_n + 1,
-                                   version, lock_key=lock_key)
+                                   version, lock_key=lock_key,
+                                   members=tuple(up))
                 pw.span = getattr(m, '_span', None)
                 pw.qphase = getattr(m, '_qos_phase', 0)
                 pw.pq_ctx = getattr(m, '_pq_ctx', None)
@@ -3023,6 +3086,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         coalesce = self._ec_read_coalesce_on(pgid.pool)
         span = getattr(m, "_span", None)
         trace = (self.tracer, span.ctx) if span is not None else None
+        self._note_asked(tid, {shard: up[shard] for shard in per_shard})
         for shard, exts in per_shard.items():
             osd = up[shard]
             want = [(soff, ln) for soff, ln, _ro in exts]
@@ -3698,6 +3762,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         # its recovery reservation/limit, not in the client lane
         coalesce = klass == "client" \
             and self._ec_read_coalesce_on(pgid.pool)
+        self._note_asked(tid, {shard: osd for shard, osd in enumerate(up)})
         for shard, osd in enumerate(up):
             if osd is None:
                 continue
@@ -3818,11 +3883,21 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
     def _handle_sub_read_reply_n(self, conn, m: MSubReadReplyN) -> None:
         self._read_agg.on_reply(f"osd.{m.from_osd}", m.items)
 
+    def _note_asked(self, tid: int, asked: dict) -> None:
+        """Record on pending read ``tid`` the OSD each shard's sub-read
+        goes to (this OSD's own shards need no record)."""
+        with self._pending_lock:
+            pr = self._pending_reads.get(tid)
+            if pr is not None:
+                pr.asked.update({s: o for s, o in asked.items()
+                                 if o is not None and o != self.osd_id})
+
     def _on_shard_read(self, tid, shard, result, data, attrs) -> None:
         with self._pending_lock:
             pr = self._pending_reads.get(tid)
             if pr is None:
                 return
+            pr.asked.pop(shard, None)
             pr.replies += 1
             if result == 0:
                 pr.chunks[shard] = np.frombuffer(data, dtype=np.uint8)
@@ -4023,7 +4098,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         if remote:  # registered before any send (sharded dispatch);
             # +1 ack for the primary's own store commit
             pw = _PendingWrite(m.client, m.tid, remote + 1, version,
-                               lock_key=lock_key)
+                               lock_key=lock_key, members=tuple(up))
             pw.span = getattr(m, '_span', None)
             pw.qphase = getattr(m, '_qos_phase', 0)
             pw.pq_ctx = getattr(m, '_pq_ctx', None)
@@ -4485,6 +4560,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         clients get an error instead of a timeout and tables don't leak."""
         if max_age is None:
             max_age = self.cfg["osd_op_timeout"]
+        self._reset_ops_on_down(self.osdmap)
         epoch = self.osdmap.epoch if self.osdmap else 0
         expired_w, expired_r = [], []
         with self._pending_lock:
@@ -4499,15 +4575,18 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         if expired_w or expired_r:
             self.perf.inc("op_timeouts", len(expired_w) + len(expired_r))
         for pw in expired_w:
-            self._note_obj_write(pw.lock_key)  # possibly-torn write
-            if pw.lock_key is not None:
-                self._ec_cache.invalidate(*pw.lock_key)
-            if pw.pq_ctx is not None:
-                pw.pq_ctx.finish(0)
-            self.messenger.send_message(
-                pw.client, MOSDOpReply(pw.client_tid, EIO,
-                                       version=pw.version, epoch=epoch))
-            self._obj_unlock(pw.lock_key)
+            self.timed_out_ops.append({
+                "at": now, "op": "write", "client": pw.client,
+                "object": repr(pw.lock_key), "acks_missing": pw.acks_needed,
+                "members": list(pw.members)})
+        for pr in expired_r:
+            self.timed_out_ops.append({
+                "at": now, "op": "recovery read" if pr.on_done else "read",
+                "client": pr.client, "object": f"{pr.pool}/{pr.oid}",
+                "replies": pr.replies, "of": pr.total_shards,
+                "chunks": sorted(pr.chunks),
+                "versions": sorted(set(pr.shard_vers.values()))})
+        self._fail_writes(expired_w, EIO, epoch)
         for pr in expired_r:
             self._finish_ec_read(pr)  # decodes if >= k arrived, else err
         self._read_agg.sweep(now, max_age)
@@ -5962,7 +6041,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                         trace=tctx))
 
         pr = _PendingRead(None, 0, pgid.pool, name, total_shards=1,
-                          on_done=on_done)
+                          on_done=on_done, asked={shard: src})
         self._pending_reads[tid] = pr
         self.messenger.send_message(
             f"osd.{src}",
@@ -6307,6 +6386,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         # the batch under its recovery reservation — instead of one
         # MSubRead per (object, helper)
         coalesce = self._ec_read_coalesce_on(pgid.pool)
+        self._note_asked(tid, {s: plan["sources"][s] for s in helpers})
         for s in helpers:
             osd = plan["sources"][s]
             if osd == self.osd_id:

@@ -24,7 +24,17 @@ The OSD children are the port's (``ceph_tpu_torch.tools.osd_main``).
 ``device`` (``--device``, default ``cuda``) says where they may compute:
 with ``cpu`` each child starts with ``CUDA_VISIBLE_DEVICES`` empty, as
 the load workers do, so it never opens a card (its EC pools then need
-``device=cpu`` in their profiles).
+``device=cpu`` in their profiles).  ``admin_dir`` gives the monitor and
+every child an admin socket there (``adm.cluster.admin("osd.3",
+"dump_process")``); without it, as in the reference, they have none.
+Each child is forked from one ``osd_main --fork-server`` interpreter
+that imported the OSD's modules once, where the reference starts an
+interpreter a child: ``import torch`` alone takes seconds on a card's
+host, and every restart of the staircase waits on a child's start.  The
+staircase waits, after ``HEALTH_OK``, until every PG answers a listing
+(``wait_pgs_active``, the orchestrator's ok-to-stop role) before it stops
+the next daemon: the reference's ``HEALTH_OK`` does not look at PGs, and
+a child that starts fast lets the staircase outrun peering.
 
 CLI:
     python -m ceph_tpu_torch.tools.cephadm --spec spec.json deploy
@@ -42,12 +52,14 @@ import time
 
 class CephAdm:
     def __init__(self, spec: dict, base_dir: str,
-                 cfg_overrides: dict | None = None, device: str = "cuda"):
+                 cfg_overrides: dict | None = None, device: str = "cuda",
+                 admin_dir: str | None = None):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}")
         self.spec = dict(spec)
         self.base = base_dir
         self.device = device
+        self.admin_dir = admin_dir
         # ONE merged config for the monitor and every OSD child — a
         # split source here silently diverges heartbeat behavior
         self.cfg = {"osd_heartbeat_interval": 0.25,
@@ -65,9 +77,12 @@ class CephAdm:
         cfg = default_config()
         cfg.apply_dict(dict(self.cfg))
         os.makedirs(self.base, exist_ok=True)
+        if self.admin_dir:
+            os.makedirs(self.admin_dir, exist_ok=True)
         self.cluster = MiniCluster(
             n_osds=0, cfg=cfg, transport="tcp",
-            mon_path=os.path.join(self.base, "mon"))
+            mon_path=os.path.join(self.base, "mon"),
+            admin_dir=self.admin_dir)
         self.cluster.start()
         for osd in self.spec.get("osds", []):
             self._spawn(osd)
@@ -96,7 +111,7 @@ class CephAdm:
             osd_id, store=store, store_path=path,
             cfg_overrides=dict(self.cfg),
             env={"CUDA_VISIBLE_DEVICES": ""} if self.device == "cpu"
-            else None)
+            else None, fork=True)
 
     # --------------------------------------------------------- inventory
     def ls(self) -> list[dict]:
@@ -150,15 +165,36 @@ class CephAdm:
             time.sleep(0.1)
         raise TimeoutError("cluster did not return to HEALTH_OK")
 
+    def wait_pgs_active(self, timeout: float = 30.0) -> None:
+        """Every PG of every pool answers a listing from its primary:
+        none is peering (the role of Ceph's `osd ok-to-stop`, which
+        stops a daemon only while its PGs stay active)."""
+        from ..client.rados import RadosError
+
+        client = self.cluster.clients[0]
+        deadline = time.time() + timeout
+        for pool in sorted(p.name for p in client.osdmap.pools.values()):
+            while True:
+                try:
+                    client.list_objects(pool)
+                    break
+                except RadosError:
+                    if time.time() > deadline:
+                        raise TimeoutError(f"pool {pool}'s PGs not active "
+                                           f"in {timeout} s") from None
+                    time.sleep(0.1)
+
     def rolling_restart(self, settle: float = 0.3) -> list[int]:
         """The upgrade staircase (qa/suites/upgrade/ shape): restart
         every OSD ONE AT A TIME, requiring the cluster back at
-        HEALTH_OK before touching the next daemon — client IO keeps
-        flowing throughout (the no-downtime upgrade contract)."""
+        HEALTH_OK, and every PG active, before touching the next daemon
+        — client IO keeps flowing throughout (the no-downtime upgrade
+        contract)."""
         order = [int(o["id"]) for o in self.spec.get("osds", [])]
         for osd_id in order:
             self.restart_daemon(osd_id)
             self.wait_health_ok()
+            self.wait_pgs_active()
             time.sleep(settle)
         return order
 
@@ -180,8 +216,9 @@ def main(argv=None) -> int:
     with open(args.spec) as f:
         spec = json.load(f)
     adm = CephAdm(spec, args.base, device=args.device)
-    adm.deploy()
     try:
+        # inside the try: a deploy that fails leaves no child running
+        adm.deploy()
         if args.verb == "ls":
             print(json.dumps(adm.ls(), indent=2))
         elif args.verb == "upgrade":

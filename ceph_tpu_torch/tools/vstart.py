@@ -9,7 +9,12 @@ helpers shaped like the thrasher/ceph-helpers verbs.
 
 from __future__ import annotations
 
+import json
 import os
+import signal
+import subprocess
+import sys
+import threading
 import time
 
 from ..client.rados import RadosClient
@@ -19,7 +24,152 @@ from ..osd.daemon import OSDDaemon
 from ..utils.admin_socket import asok_path
 from ..utils.config import Config, default_config
 
-__all__ = ["MiniCluster", "asok_path"]
+__all__ = ["ForkServer", "MiniCluster", "asok_path", "pid_running"]
+
+
+def pid_running(pid: int) -> bool:
+    """The process exists and has not exited (a zombie counts as
+    exited)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _osd_env(env: dict | None) -> dict:
+    """This process's environment with ``env`` set over it, and the
+    package's root on PYTHONPATH (a child must find the package whatever
+    the caller's cwd)."""
+    import ceph_tpu_torch
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.abspath(ceph_tpu_torch.__file__)))
+    child_env = {**os.environ, **(env or {})}
+    child_env["PYTHONPATH"] = pkg_root + os.pathsep + child_env.get(
+        "PYTHONPATH", "")
+    return child_env
+
+
+class ForkedOSD:
+    """An OSD a ForkServer forked, with the face of the Popen a spawned
+    one has (pid, poll, returncode, wait, terminate, kill): the server,
+    its parent, reaps it and reports its exit code.  Once the server is
+    gone, an OSD that no longer runs has exited with a code no one
+    kept: -1."""
+
+    def __init__(self, server: "ForkServer", pid: int):
+        self._server = server
+        self.pid = pid
+
+    @property
+    def returncode(self) -> int | None:
+        rc = self._server.exit_code(self.pid)
+        if rc is None and self._server.proc.poll() is not None \
+                and not pid_running(self.pid):
+            return -1
+        return rc
+
+    def poll(self) -> int | None:
+        return self.returncode
+
+    def wait(self, timeout: float | None = None) -> int:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = None if deadline is None else deadline - time.monotonic()
+            rc = self._server.wait_exit(self.pid, 0.1 if left is None
+                                        else max(0.0, min(0.1, left)))
+            rc = self.returncode if rc is None else rc
+            if rc is not None:
+                return rc
+            if deadline is not None and time.monotonic() >= deadline:
+                raise subprocess.TimeoutExpired(f"osd pid {self.pid}",
+                                                timeout)
+
+    def send_signal(self, sig: int) -> None:
+        if self.returncode is None:
+            try:
+                os.kill(self.pid, sig)
+            except ProcessLookupError:
+                pass
+
+    def terminate(self) -> None:
+        self.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self.send_signal(signal.SIGKILL)
+
+
+class ForkServer:
+    """The harness's end of ``python -m ceph_tpu_torch.tools.osd_main
+    --fork-server`` (osd_main.fork_server): started with ``env`` over
+    this process's environment, it forks each OSD ``spawn`` asks for
+    from one interpreter that has already imported the OSD's modules."""
+
+    def __init__(self, env: dict | None = None):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.osd_main",
+             "--fork-server", "--parent-pid", str(os.getpid())],
+            env=_osd_env(env), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE)
+        self._cv = threading.Condition()
+        self._pids: dict[int, int] = {}   # request id -> pid
+        self._exits: dict[int, int] = {}  # pid -> exit code
+        self._ids = iter(range(1, 1 << 62))
+        threading.Thread(target=self._read, name="osd-fork-server",
+                         daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            msg = json.loads(line)
+            with self._cv:
+                if "exited" in msg:
+                    self._exits[msg["exited"]] = msg["rc"]
+                else:
+                    self._pids[msg["id"]] = msg["pid"]
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def spawn(self, argv: list, timeout: float = 120.0) -> ForkedOSD:
+        """Fork an OSD running ``osd_main.main(argv)``; ``timeout``
+        bounds the wait for its pid (the first request waits for the
+        server's imports)."""
+        with self._cv:
+            rid = next(self._ids)
+        self.proc.stdin.write(json.dumps({"id": rid, "argv": argv})
+                              .encode() + b"\n")
+        self.proc.stdin.flush()
+        with self._cv:
+            if not self._cv.wait_for(lambda: rid in self._pids
+                                     or self.proc.poll() is not None,
+                                     timeout):
+                raise TimeoutError(f"fork server gave no pid in {timeout} s")
+            if rid not in self._pids:
+                raise RuntimeError(f"fork server exited "
+                                   f"{self.proc.returncode}")
+            return ForkedOSD(self, self._pids.pop(rid))
+
+    def exit_code(self, pid: int) -> int | None:
+        with self._cv:
+            return self._exits.get(pid)
+
+    def wait_exit(self, pid: int, timeout: float | None) -> int | None:
+        with self._cv:
+            self._cv.wait_for(lambda: pid in self._exits
+                              or self.proc.poll() is not None, timeout)
+            return self._exits.get(pid)
+
+    def stop(self) -> None:
+        """Close the server's stdin, so it exits; wait for it."""
+        try:
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
 
 
 class MiniCluster:
@@ -75,6 +225,7 @@ class MiniCluster:
         self.mon = self.mons[0]  # compat alias (single-mon tests)
         self.osds: dict[int, OSDDaemon] = {}
         self.procs: dict[int, object] = {}  # subprocess OSDs (tcp mode)
+        self._fork_servers: dict[tuple, ForkServer] = {}
         self.clients: list[RadosClient] = []
         self._n = n_osds
         self._hosts_per_osd = hosts_per_osd
@@ -212,26 +363,24 @@ class MiniCluster:
                           store_path: str | None = None,
                           cfg_overrides: dict | None = None,
                           bind_ip: str | None = None,
-                          env: dict | None = None):
+                          env: dict | None = None, fork: bool = False):
         """Boot an OSD as a REAL child process over TCP (the multi-daemon
         vstart.sh mode).  Requires transport='tcp'.  ``env`` is set over
-        this process's environment in the child's.  Returns the Popen;
-        kill it with .terminate()/.kill() like a thrasher would."""
-        import json as _json
-        import os
-        import subprocess
-        import sys
-
-        import ceph_tpu_torch
+        this process's environment in the child's.  The child stops by
+        itself if its parent dies first (``--parent-pid``).  Returns
+        the Popen; kill it with .terminate()/.kill() like a thrasher
+        would.  ``fork``: the OSD is forked by this cluster's fork
+        server for ``env`` (started at the first such spawn) instead of
+        starting an interpreter of its own, and the handle is a
+        ForkedOSD with the same face."""
         mon_addr = self.network.addr_of(self.mon.name)
         if ":" not in mon_addr:
             raise RuntimeError("spawn_osd_process needs transport='tcp'")
-        argv = [sys.executable, "-m", "ceph_tpu_torch.tools.osd_main",
-                "--id", str(osd_id), "--mon-addr", mon_addr,
+        argv = ["--id", str(osd_id), "--mon-addr", mon_addr,
                 "--store", store,
                 "--host", f"host{osd_id}" if self._hosts_per_osd
                 else "host0",
-                "--cfg", _json.dumps(cfg_overrides or {})]
+                "--cfg", json.dumps(cfg_overrides or {})]
         if store_path:
             argv += ["--store-path", store_path]
         if bind_ip:
@@ -244,13 +393,17 @@ class MiniCluster:
             argv += ["--compress", self._tcp_compress]
         if self._tcp_secure:
             argv += ["--secure"]
-        # the child must find the package regardless of caller cwd
-        pkg_root = os.path.dirname(os.path.dirname(
-            os.path.abspath(ceph_tpu_torch.__file__)))
-        child_env = {**os.environ, **(env or {})}
-        child_env["PYTHONPATH"] = pkg_root + os.pathsep + child_env.get(
-            "PYTHONPATH", "")
-        proc = subprocess.Popen(argv, env=child_env)
+        if fork:
+            key = tuple(sorted((env or {}).items()))
+            server = self._fork_servers.get(key)
+            if server is None:
+                server = self._fork_servers[key] = ForkServer(env)
+            proc = server.spawn(argv)
+        else:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.osd_main",
+                 *argv, "--parent-pid", str(os.getpid())],
+                env=_osd_env(env))
         self.procs[osd_id] = proc
         return proc
 
@@ -289,13 +442,21 @@ class MiniCluster:
                 pass
         for o in self.osds.values():
             o.stop()
+        # every child is told to stop before any is waited for: their
+        # shutdowns overlap
         for p in self.procs.values():
             try:
                 p.terminate()
+            except OSError:
+                pass
+        for p in self.procs.values():
+            try:
                 p.wait(timeout=5)
             except Exception:  # noqa: BLE001
                 p.kill()
                 p.wait()  # reap — no zombies across a test session
+        for server in self._fork_servers.values():
+            server.stop()
         for m in self.mons.values():
             m.stop()
         for a in self.admin_sockets.values():

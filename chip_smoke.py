@@ -91,8 +91,9 @@ in order, one line each:
              one monitor on the default config but OSD_CONFIG
              (ec_backend torch: every codec on the card), the tpu reed_sol_van k=8 m=3 pool at
              pg_num 64 with the 4 KiB stripe unit; 8 client threads write
-             64 seeded objects of 4 MiB (256 MiB of data; cut from 128 so
-             the whole run stays near 330 s), read each back
+             32 seeded objects of 4 MiB (128 MiB of data; cut from 128 to
+             64 and then to 32 so the whole run stays near ~360 s with
+             phase 21; about 5 s), read each back
              twice (the second pass must find the arena: extent-cache
              serves and arena hits), a folded deep scrub of one PG on each
              of its OSDs, then two of its OSDs killed and marked down:
@@ -160,7 +161,9 @@ in order, one line each:
              written by 8 threads through
              the Image API in whole objects, 64 MiB again through
              NbdClient and 64 MiB through NvmeInitiator at 1 MiB a
-             request, 2048 random 4 KiB overwrites, a snapshot and 256
+             request, 512 random 4 KiB overwrites (cut from 2048 for the
+             whole run's time when phase 21 came; about 30 s) a
+             snapshot and 256
              more, then two OSDs of the image's PGs killed and marked
              down, the whole head read back degraded through the Image
              API while recovery rebuilds, 64 MiB through NBD and the
@@ -171,11 +174,45 @@ in order, one line each:
              encode, parity delta, row read-modify-write), each kernel's
              launches, copies back a flush, timed-out ops and dropped
              messages.
+21. cephadm — the one-process-per-OSD deployment (CEPHADM): the port's
+             tools.cephadm.CephAdm deploys a monitor in this process and
+             12 OSDs, each an osd_main process on its own filestore and
+             host, forked by CephAdm's fork server (where the reference
+             starts an interpreter a child:
+             ``import torch`` alone took 7.7-9.1 s on the card's host,
+             16 s a child under the cluster's load, and each step of the
+             staircase waits on a child's start; the children are
+             forked from one ``osd_main --fork-server`` interpreter that
+             imported the OSD's modules and touched no CUDA), each
+             child readying the card (the CUDA library, its own
+             context) before it boots; CephAdm's own config over the
+             defaults (0.25 s heartbeats, 2.0 s grace, the 5 s op
+             timeout, auto-scrub on: not OSD_CONFIG, which the 14 OSDs
+             of one interpreter need); phase 17's tpu reed_sol_van k=8
+             m=3 pool at pg_num 32, each child building its codec on the
+             card; 8 threads write 64 seeded objects of 4 MiB and read
+             each back, a deep scrub; one child killed with SIGKILL and
+             marked down on its peers' reports, every object read back
+             degraded, the child restarted and the cluster waited back
+             to HEALTH_OK with every PG active; rolling_restart() under
+             a writer of 1 MiB objects (each step waits for HEALTH_OK and
+             every PG active); every object read back, a deep scrub, the
+             inventory (13 daemons running, every OSD up), the teardown.
+             The children's counts are read through each child's admin
+             socket (``dump_process``) just before it is killed and at
+             the end, and summed.  It prints the [cephadm] line: deploy
+             and the slowest child's start, each child's library load,
+             GB/s of the writes, reads and degraded reads, each step's
+             seconds from kill to HEALTH_OK and to every PG active, the
+             children's launches and picks, the CUDA contexts and
+             nvidia-smi's device memory, timed-out ops and flaps.
 
 Phases 5-7 are the main path of the ``tpu`` plugin, phases 8-10 the
 bit-matrix path, phase 11 the write path, phases 12-14 the wide path and
 phase 16 the cluster path, phase 17 the OSD path, phase 19 the mesh
-path and phase 20 the services path: the launch counts are set to 0 before each path and read after it.
+path, phase 20 the services path and phase 21 the deployment path: the
+launch counts are set to 0 before each path and read after it (phase
+21's in its children).
 The region kernels must have launched on the first, the scheduled-XOR
 kernel on the second, G1 and a region kernel on the third, the plain
 versions on none, and no kernel pick may have skipped a candidate but
@@ -210,15 +247,25 @@ its 15 checks with a region kernel and G1 launched, the image's writes
 must have launched a region kernel and G1 (the fused writes), its
 degraded reads a region kernel, no plain version may have run, every
 codec and arena must be on the card, and no op may have timed out and
-no OSD dropped a message.  Then one JSON line lists every kernel
-(``mesh_launches``: its launches on phase 19, ``services_launches``: on
-phase 20), and the last line is the ``{"ok": true, "device": ...}``
+no OSD dropped a message.  On the deployment phase no child may have
+launched a plain version, the children must have launched a region
+kernel and G1 and every OSD's children some kernel, none may have
+rebuilt the CUDA library, every child must hold a CUDA context and
+nvidia-smi must show the children's device memory, both deep scrubs
+must be clean, the inventory whole, no op timed out, no message dropped,
+no OSD marked down but by the phase's own steps (a flap), the writer's
+every acked write read back, and no child alive after the teardown.
+Then one JSON line lists every kernel (``mesh_launches``: its launches
+on phase 19, ``services_launches``: on phase 20, ``cephadm_launches``:
+summed over phase 21's children), and the last line is the ``{"ok":
+true, "device": ...}``
 object.  Any failure exits nonzero, and so does a process with no CUDA
 card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import io
@@ -226,10 +273,13 @@ import itertools
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -248,8 +298,8 @@ from ceph_tpu_torch.ops import (checksum, cuda_lib, ec_kernels, gf256,
                                 native, xor_schedule)
 from ceph_tpu_torch.osd.objectstore import CollectionId, ObjectId
 from ceph_tpu_torch.tools import (bench_root, bench_sweep, bench_tpu,
-                                  dencoder, ec_benchmark, ec_non_regression,
-                                  vstart)
+                                  cephadm, dencoder, ec_benchmark,
+                                  ec_non_regression, vstart)
 from ceph_tpu_torch.utils import staging
 from ceph_tpu_torch.utils.config import default_config
 from ceph_tpu_torch.utils.perf import global_perf, kernel_profiler
@@ -2450,8 +2500,8 @@ def check_cluster(counts: dict[str, int]) -> None:
 #: production EC pool: 14 OSDs, each on its own host, one monitor, local
 #: transport, the default config but OSD_CONFIG below (so the pool's
 #: codec is torch on the card), the tpu reed_sol_van k=8 m=3 pool at pg_num 64 with Ceph's
-#: 4 KiB stripe unit; 8 client threads write 64 objects of 4 MiB (the
-#: RADOS default object size: 256 MiB of data, 352 MiB stored), read
+#: 4 KiB stripe unit; 8 client threads write 32 objects of 4 MiB (the
+#: RADOS default object size: 128 MiB of data, 176 MiB stored), read
 #: each back twice, deep-scrub one PG, lose two OSDs, read everything
 #: degraded and recover onto the spares.  ``wait_s`` bounds each wait,
 #: ``sample`` is how many objects are read back after recovery.  Cut
@@ -2460,7 +2510,9 @@ def check_cluster(counts: dict[str, int]) -> None:
 #: after the loss (peering, and the rebuild's decodes with their kernel
 #: races), and whole runs reached 403.3 s, past the ~330 s they aim at;
 #: phase 20 drives the same cluster and pool with 128 objects in one PG.
-OSD_PHASE = dict(osds=14, pg_num=64, k=8, m=3, objects=64,
+#: Cut again to 32 when phase 21 came (19.7 s at 64 objects in the run
+#: that first had phase 21, 379.6 s whole, past the ~360 s aimed at).
+OSD_PHASE = dict(osds=14, pg_num=64, k=8, m=3, objects=32,
                  object_size=OBJECT_SIZE, threads=8, lost=2, sample=16,
                  wait_s=240.0)
 OSD_POOL = "ecpool"
@@ -3105,11 +3157,13 @@ def check_mesh(counts: dict[str, int], res: dict) -> None:
 #: Image API while recovery runs, ``gateway`` bytes of it through NBD,
 #: and the snapshot.  ``wait_s`` bounds each wait.  Every object of an
 #: image places in one PG, whose primary does all of the leg's host
-#: work; the leg takes 83-91 s at 512 MiB on the card (the 4 KiB
-#: overwrites 42-46 s of it).
+#: work; the leg took 83-91 s at 512 MiB on the card with 2048 4 KiB
+#: overwrites (42-46 s of it).  Cut to 512 overwrites when phase 21
+#: came (81.9-90.8 s on the card; 1024 overwrites took 24.9 s of a
+#: 379.6 s run, past the ~360 s aimed at).
 SERVICES = dict(osds=14, pg_num=64, k=8, m=3, image=512 << 20,
                 object_size=OBJECT_SIZE, threads=8, gateway=64 << 20,
-                request=1 << 20, overwrites=2048, snap_overwrites=256,
+                request=1 << 20, overwrites=512, snap_overwrites=256,
                 lost=2, wait_s=240.0)
 SERVICES_POOL = "rbdpool"
 #: the OSD write routes phase 20 counts, by the method that takes each
@@ -3510,6 +3564,493 @@ def check_services(counts: dict[str, int], res: dict) -> None:
                              "messages dropped")
 
 
+# ------------------------------------------------------------ phase 21
+#: phase 21: the port's deployment tool on the card, one process per OSD.
+#: CephAdm deploys a monitor (in this process) and 12 OSDs, each an
+#: osd_main process (forked by CephAdm's fork server)
+#: on its own filestore and host, on CephAdm's own config (0.25 s
+#: heartbeats and a 2.0 s grace over the defaults; not OSD_CONFIG: each
+#: OSD has an interpreter of its own, and the defaults held: no flap, no
+#: timed-out op); phase 17's tpu reed_sol_van k=8 m=3 pool (no backend,
+#: no device: each child builds its codec on the card) at pg_num 32; 8
+#: client threads write 64 seeded objects of 4 MiB (256 MiB, phase 17's
+#: size before its cut to 32), one child is killed with SIGKILL, and the
+#: rolling restart runs under a writer of ``live_size`` objects, which
+#: cycles through ``live_payloads`` seeded payloads.  ``wait_s`` bounds
+#: each wait of the phase's own; ``cfg`` is set over CephAdm's config
+#: (none on the card).
+CEPHADM = dict(osds=12, pg_num=32, k=8, m=3, objects=64,
+               object_size=OBJECT_SIZE, threads=8, live_size=1 << 20,
+               live_payloads=16, wait_s=120.0, cfg=None)
+CEPHADM_POOL = "ecpool"
+
+
+def cephadm_downs(mon) -> collections.Counter:
+    """(osd, "operator" or "failure") -> how many times the monitor's
+    cluster log says the OSD was marked down: by an ``osd down``
+    command, or on its peers' failure reports."""
+    downs = collections.Counter()
+    for ev in mon.cluster_log.dump(channel="cluster")["events"]:
+        if "marked down" in ev["message"]:
+            downs[(ev["fields"]["osd"], "operator" if "(operator)" in
+                   ev["message"] else "failure")] += 1
+    return downs
+
+
+def compute_apps() -> dict[int, int]:
+    """pid -> MiB of device memory of every process nvidia-smi lists as
+    holding a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    apps = {}
+    for ln in out.strip().splitlines():
+        pid, mib = (f.strip() for f in ln.split(","))
+        apps[int(pid)] = int(mib)
+    return apps
+
+
+def _child_sums(incarnations: list) -> tuple[dict, dict]:
+    """Launch counts and fault counts summed over the children's
+    ``dump_process`` documents."""
+    counts = collections.Counter()
+    faults = collections.Counter()
+    for st in incarnations:
+        counts.update(st["launches"])
+        counts["fused"] += st["fused"]
+        faults.update(st["faults"])
+    return dict(counts), {"op_timeouts": faults["op_timeouts"],
+                          "dropped": faults["dropped"]}
+
+
+def phase_cephadm(dev: torch.device, rng: np.random.Generator,
+                  **over) -> tuple[dict[str, int], dict]:
+    """Phase 21: CephAdm deploys the monitor and the OSD children, 8
+    threads write the objects and read each back, a deep scrub; one
+    child is killed with SIGKILL, the monitor marks it down on its peers'
+    reports, every object is read back degraded, the child is restarted
+    and the cluster waited back to HEALTH_OK; then the rolling restart
+    under a writer, every object read back, a deep scrub, the inventory,
+    and the teardown.  The children's launches are read through each
+    child's admin socket (``dump_process``) just before it is killed and
+    at the end, and summed.  Returns those counts and the phase's
+    numbers."""
+    cfg = dict(CEPHADM, **over)
+    k, m, n, size = cfg["k"], cfg["m"], cfg["objects"], cfg["object_size"]
+    threads, wait_s = cfg["threads"], cfg["wait_s"]
+    per = n // threads
+    if per * threads != n:
+        raise ValueError("objects must be a multiple of threads")
+    t0, t_wall = time.perf_counter(), time.time()
+    raw = rng.bytes(n * size)
+    payloads = [raw[i * size:(i + 1) * size] for i in range(n)]
+    del raw
+    live = [rng.bytes(cfg["live_size"]) for _ in range(cfg["live_payloads"])]
+    names = [f"obj{i:04d}" for i in range(n)]
+    gib = n * size / 1e9
+    base = tempfile.mkdtemp(prefix="cephadm")
+    spec = {"osds": [{"id": i, "store": "filestore"}
+                     for i in range(cfg["osds"])],
+            "pools": [{"name": CEPHADM_POOL, "kind": "ec",
+                       "pg_num": cfg["pg_num"],
+                       "ec_profile": osd_profile(dev, k=k, m=m)}]}
+    adm = cephadm.CephAdm(spec, os.path.join(base, "cluster"),
+                          cfg_overrides=cfg["cfg"], device=dev.type,
+                          admin_dir=os.path.join(base, "asok"))
+    spawned: list = []  # the Popen of every child, restarts included
+    spawn_wall: dict[int, float] = {}
+    spawn_log: list = []  # (osd, wall clock of its spawn), in order
+    starts: list = []  # (osd, seconds from its spawn to its boot)
+    incarnations: list = []  # each child's dump_process, with its osd
+    res: dict = {"objects": n, "object_size": size, "osds": cfg["osds"],
+                 "device": dev.type}
+    spawn_one = adm._spawn
+
+    def spawn(osd_spec):
+        spawn_wall[int(osd_spec["id"])] = time.time()
+        spawn_log.append((int(osd_spec["id"]), spawn_wall[int(
+            osd_spec["id"])]))
+        proc = spawn_one(osd_spec)
+        spawned.append(proc)
+        return proc
+
+    adm._spawn = spawn
+
+    def booted(osd_id: int) -> None:
+        starts.append((osd_id, adm.cluster.mon._boot_times[osd_id]
+                       - spawn_wall[osd_id]))
+
+    def harvest(osd_id: int) -> dict:
+        st = adm.cluster.admin(f"osd.{osd_id}", "dump_process")
+        st["osd"] = osd_id
+        incarnations.append(st)
+        return st
+
+    def read(client, i):
+        if client.read(CEPHADM_POOL, names[i]) != payloads[i]:
+            raise AssertionError(f"cephadm: {names[i]} read back wrong")
+
+    ec_kernels.reset_launches()
+    writer_stop = threading.Event()
+    writer = None
+    try:
+        # 1. deploy, every child's codec built (and its context open)
+        adm.deploy()
+        res["deploy_s"] = time.perf_counter() - t0
+        for osd_id in range(cfg["osds"]):
+            booted(osd_id)
+        pool_id = adm.cluster.clients[0]._pool_id(CEPHADM_POOL)
+        ready = {}
+        deadline = time.monotonic() + wait_s
+        while len(ready) < cfg["osds"]:
+            for osd_id in set(range(cfg["osds"])) - set(ready):
+                st = adm.cluster.admin(f"osd.{osd_id}", "dump_process")
+                if pool_id in st["ec_pools"] and (
+                        dev.type != "cuda" or st["cuda"]["context"]):
+                    ready[osd_id] = st
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cephadm: codecs not built within "
+                                     f"{wait_s} s on "
+                                     f"{sorted(set(range(cfg['osds'])) - set(ready))}")
+            time.sleep(0.05)
+        res["ready_s"] = time.perf_counter() - t0
+        adm.wait_pgs_active(timeout=wait_s)
+        res["peered_s"] = time.perf_counter() - t0
+        say("cephadm", f"deployed in {res['deploy_s']:.2f} s, codecs ready "
+                       f"at {res['ready_s']:.2f} s, PGs peered at "
+                       f"{res['peered_s']:.2f} s; starts "
+                       f"{[round(s, 2) for _o, s in starts]}")
+        res["lib_s"] = [ready[i]["cuda_lib"].get("seconds")
+                        for i in sorted(ready)]
+        res["contexts"] = {i: ready[i]["cuda"]["context"]
+                           for i in sorted(ready)}
+        if dev.type == "cuda":
+            res["apps"] = compute_apps()
+        # 2. writes, reads, a deep scrub
+        clients = [adm.cluster.client() for _ in range(threads)]
+        res["write_s"] = _each_thread(threads, per, lambda i: clients[
+            i // per].write_full(CEPHADM_POOL, names[i], payloads[i]))
+        res["read_s"] = _each_thread(threads, per,
+                                     lambda i: read(clients[i // per], i))
+        t1 = time.perf_counter()
+        res["scrub1"] = clients[0].scrub_pool(CEPHADM_POOL, deep=True)
+        res["scrub1_s"] = time.perf_counter() - t1
+        # 3. a crash: SIGKILL, marked down on its peers' reports,
+        # degraded reads, the restart and HEALTH_OK
+        mon = adm.cluster.mon
+        victim = mon.osdmap.pg_to_up_osds(
+            pool_id, mon.osdmap.object_to_pg(pool_id, names[0]))[0]
+        res["victim"] = victim
+        harvest(victim)
+        t1 = time.perf_counter()
+        os.kill(adm.cluster.procs[victim].pid, signal.SIGKILL)
+        _wait_until("the crashed OSD marked down", lambda: not
+                    mon.osdmap.osds[victim].up, wait_s)
+        res["detect_s"] = time.perf_counter() - t1
+        epoch = mon.osdmap.epoch
+        for c in clients:
+            _wait_until("a client's map", lambda: c.osdmap.epoch >= epoch,
+                        wait_s)
+        res["degraded_s"] = _each_thread(threads, per,
+                                         lambda i: read(clients[i // per],
+                                                        i))
+        t1 = time.perf_counter()
+        adm.restart_daemon(victim)
+        booted(victim)
+        adm.wait_health_ok(timeout=wait_s)
+        adm.wait_pgs_active(timeout=wait_s)
+        res["crash_restart_s"] = time.perf_counter() - t1
+        say("cephadm", f"writes {res['write_s']:.2f} s, reads "
+                       f"{res['read_s']:.2f} s, crash of osd.{victim} marked"
+                       f" down in {res['detect_s']:.2f} s, degraded reads "
+                       f"{res['degraded_s']:.2f} s, restart to HEALTH_OK "
+                       f"{res['crash_restart_s']:.2f} s")
+        # 4. the rolling restart under a writer
+        errors: list = []
+        written: dict[str, int] = {}
+        wclient = adm.cluster.client()
+
+        retries: list = []  # (seconds into the staircase, error)
+
+        def write_live():
+            i = 0
+            while not writer_stop.is_set():
+                name, data = f"live{i:05d}", live[i % len(live)]
+                # the reference's test_rolling_restart_under_load: an
+                # op may be retried in the window a member is down, but
+                # an acked write must read back
+                for attempt in range(4):
+                    try:
+                        wclient.write_full(CEPHADM_POOL, name, data)
+                        break
+                    except Exception as e:  # noqa: BLE001
+                        if writer_stop.is_set():
+                            return
+                        retries.append((time.perf_counter() - t1, repr(e)))
+                        if attempt == 3:
+                            errors.append(e)
+                            return
+                        time.sleep(0.5)
+                try:
+                    if wclient.read(CEPHADM_POOL, name) != data:
+                        raise AssertionError(f"cephadm: {name} read back "
+                                             "wrong after its write")
+                    written[name] = i % len(live)
+                except Exception as e:  # noqa: BLE001
+                    errors.append(e)
+                    return
+                i += 1
+                time.sleep(0.05)
+
+        steps: list = []
+        restart_one, health_one = adm.restart_daemon, adm.wait_health_ok
+        active_one = adm.wait_pgs_active
+
+        def restart(osd_id, wait=30.0):
+            harvest(osd_id)
+            steps.append({"osd": osd_id, "t": time.perf_counter()})
+            restart_one(osd_id, wait)
+            booted(osd_id)
+            steps[-1]["up_s"] = time.perf_counter() - steps[-1]["t"]
+            steps[-1]["start_s"] = starts[-1][1]
+
+        def health(timeout=30.0):
+            health_one(timeout)
+            step = steps[-1]
+            step["ok_s"] = time.perf_counter() - step["t"]
+
+        def active(timeout=30.0):
+            active_one(timeout)
+            step = steps[-1]
+            step["active_s"] = time.perf_counter() - step.pop("t")
+            say("cephadm", f"step osd.{step['osd']} at "
+                           f"{time.time() - t_wall - step['active_s']:.2f}"
+                           f" s: "
+                           f"up {step['up_s']:.2f}"
+                           f" s (its start {step['start_s']:.2f} s), "
+                           f"HEALTH_OK {step['ok_s']:.2f} s and every PG "
+                           f"active {step['active_s']:.2f} s after the kill;"
+                           f" writer {len(written)} objects, "
+                           f"{len(retries)} retries")
+
+        writer = threading.Thread(target=write_live, daemon=True)
+        adm.restart_daemon, adm.wait_health_ok = restart, health
+        adm.wait_pgs_active = active
+        t1 = time.perf_counter()
+        writer.start()
+        try:
+            res["order"] = adm.rolling_restart()
+        finally:
+            adm.restart_daemon, adm.wait_health_ok = restart_one, health_one
+            adm.wait_pgs_active = active_one
+            writer_stop.set()
+            writer.join(timeout=wait_s)
+        res["staircase_s"] = time.perf_counter() - t1
+        res["steps"] = steps
+        res["writer_retries"] = retries
+        if writer.is_alive():
+            raise AssertionError("cephadm: the writer did not stop")
+        if errors:
+            say("cephadm", f"writer retries: {retries}")
+            raise AssertionError(f"cephadm: the writer failed in the "
+                                 f"staircase: {errors[0]!r}")
+        if not written:
+            raise AssertionError("cephadm: the writer never completed a "
+                                 "write")
+        res["live_objects"] = len(written)
+        # 5. every object back, a deep scrub, the inventory
+        expect = [(names[i], payloads[i]) for i in range(n)] + [
+            (name, live[j]) for name, j in sorted(written.items())]
+
+        def verify(t):
+            for name, data in expect[t::threads]:
+                if clients[t].read(CEPHADM_POOL, name) != data:
+                    raise AssertionError(f"cephadm: {name} read back "
+                                         "wrong after the staircase")
+
+        res["verify_s"] = _threads(threads, verify)
+        t1 = time.perf_counter()
+        res["scrub2"] = clients[0].scrub_pool(CEPHADM_POOL, deep=True)
+        res["scrub2_s"] = time.perf_counter() - t1
+        res["ls"] = adm.ls()
+        for osd_id in range(cfg["osds"]):
+            harvest(osd_id)
+        res["downs"] = cephadm_downs(mon)
+    finally:
+        writer_stop.set()
+        t1 = time.perf_counter()
+        adm.teardown()
+        res["teardown_s"] = time.perf_counter() - t1
+        res["alive"] = [p.pid for p in spawned
+                        if p.poll() is None and vstart.pid_running(p.pid)]
+        if dev.type == "cuda" and "apps" in res:
+            # the card's processes as nvidia-smi lists them, with the
+            # children up and after the teardown (where its pids are
+            # not this machine's, it lists them all as one)
+            res["apps_after"] = compute_apps()
+            res["children_mib"] = (sum(res["apps"].values())
+                                   - sum(res["apps_after"].values()))
+        shutil.rmtree(base, ignore_errors=True)
+    want = collections.Counter({(i, "operator"): 1
+                                for i in range(cfg["osds"])})
+    want[(victim, "operator")] += 1
+    want[(victim, "failure")] += 1
+    res["flaps"] = sum((res["downs"] - want).values())
+    res["missed_downs"] = sum((want - res["downs"]).values())
+    counts, res["faults"] = _child_sums(incarnations)
+    res["parent"] = ec_kernels.launch_counts()
+    res["incarnations"] = incarnations
+    stages = collections.defaultdict(list)
+    seen = collections.Counter()
+    boots = collections.defaultdict(list)
+    for osd_id, secs in starts:
+        boots[osd_id].append(secs)
+    for st in incarnations:
+        osd_id = st["osd"]
+        nth = seen[osd_id]
+        seen[osd_id] += 1
+        wall = [w for o, w in spawn_log if o == osd_id][nth]
+        t = st["start"]
+        stages["interpreter"].append(t["started_at"] - wall)
+        stages["imports"].append(t["imported_at"] - t["started_at"])
+        stages["daemon"].append(t["built_at"] - t["imported_at"])
+        stages["card"].append(t["card_at"] - t["built_at"])
+        stages["boot_to_mon"].append(wall + boots[osd_id][nth]
+                                     - t["booted_at"])
+    say("cephadm", "child start by stage (median, max s): " + ", ".join(
+        f"{k} {statistics.median(v):.2f} {max(v):.2f}"
+        for k, v in stages.items()))
+    timed = [dict(d, osd=st["osd"], at=round(d["at"] - t_wall, 2))
+             for st in incarnations for d in st["timed_out"]]
+    if timed:
+        say("cephadm", f"{len(timed)} timed-out ops described, the first: "
+                       f"{timed[:12]}")
+    res["starts"] = starts
+    res["phase_s"] = time.perf_counter() - t0
+    say("cephadm", cephadm_line(res, counts, gib, dev))
+    return counts, res
+
+
+def cephadm_line(res: dict, counts: dict, gib: float,
+                 dev: torch.device) -> str:
+    """The [cephadm] line: deploy and the slowest child's start, GB/s of
+    each pass, the crash and each staircase step's seconds, the
+    children's launches summed and their picks, device memory, and the
+    faults."""
+    region = {c: counts.get(c, 0) for c in
+              [KERNELS[r][1] for r in KERNELS]
+              + [SCHED_KERNEL[1], CRC_KERNEL[1], "plain", "fused"]}
+    held = sum(1 for c in res["contexts"].values() if c)
+    picks = collections.Counter(
+        p["picked"] for st in res["incarnations"]
+        for p in st["picks"].values())
+    slowest = max(res["starts"][:res["osds"]], key=lambda s: s[1])
+    built = [st["osd"] for st in res["incarnations"]
+             if st["cuda_lib"].get("built")]
+    lib = [s for s in res["lib_s"] if s is not None]
+    steps = ", ".join(f"{s['osd']}:{s['ok_s']:.2f}/{s['active_s']:.2f}"
+                      for s in res["steps"])
+    return (f"{res['osds']} osd_main children: deploy {res['deploy_s']:.3f} s"
+            f" (slowest start osd.{slowest[0]} {slowest[1]:.3f} s; codecs "
+            f"ready {res['ready_s']:.3f} s; library load "
+            + (f"{min(lib):.3f}-{max(lib):.3f} s" if lib else "none")
+            + "), "
+            f"write {gib / res['write_s']:.4f} GB/s ({res['write_s']:.3f}"
+            f" s), read {gib / res['read_s']:.4f} GB/s "
+            f"({res['read_s']:.3f} s), deep scrub {res['scrub1_s']:.3f} s;"
+            f" osd.{res['victim']} killed (SIGKILL), marked down in "
+            f"{res['detect_s']:.3f} s, degraded read "
+            f"{gib / res['degraded_s']:.4f} GB/s ({res['degraded_s']:.3f} "
+            f"s), restart to HEALTH_OK and every PG active "
+            f"{res['crash_restart_s']:.3f} s; staircase "
+            f"{res['staircase_s']:.3f} s (kill to HEALTH_OK / every PG "
+            f"active, osd:s/s: {steps}) under a writer of "
+            f"{res['live_objects']} "
+            f"objects; restarts' starts "
+            f"{min(s for _o, s in res['starts'][res['osds']:]):.3f}-"
+            f"{max(s for _o, s in res['starts'][res['osds']:]):.3f} s; "
+            f"verify {res['verify_s']:.3f} s, deep scrub "
+            f"{res['scrub2_s']:.3f} s, teardown {res['teardown_s']:.3f} s; "
+            f"children's launches {json.dumps(region)}, picks "
+            f"{json.dumps(dict(picks))}, library rebuilt by {built}; "
+            f"{held} of {res['osds']} children hold a CUDA context, "
+            f"nvidia-smi's processes {res.get('apps')} MiB with them up, "
+            f"{res.get('apps_after')} after (the children "
+            f"{res.get('children_mib')} MiB); "
+            f"{res['faults']['op_timeouts']} ops timed out, "
+            f"{res['faults']['dropped']} messages dropped, "
+            f"{res['flaps']} flaps; this process's launches "
+            f"{json.dumps(res['parent'])}; {card(dev)}; phase "
+            f"{res['phase_s']:.1f} s")
+
+
+def check_cephadm(counts: dict[str, int], res: dict) -> None:
+    """Phase 21: no child launched a plain version; the children
+    launched a region kernel and G1, and every OSD's children some
+    kernel; none rebuilt the library; on the card, every child held a
+    CUDA context (its own report) and nvidia-smi showed the children's
+    device memory (its processes' MiB with them up less after the
+    teardown: in a container it lists every process as one, so a pid
+    cannot be matched); both deep scrubs were clean; the
+    inventory showed every daemon running and every OSD up; no op
+    waited out the op timeout, no message was dropped, no OSD was
+    marked down but by the phase's own steps; and no child outlived the
+    teardown."""
+    say("launches", f"cephadm: {json.dumps(counts)}")
+    if counts.get("plain"):
+        raise AssertionError(f"a plain version ran {counts['plain']} "
+                             "times in the cephadm children")
+    region = [KERNELS[r][1] for r in KERNELS]
+    if not any(counts.get(c) for c in region):
+        raise AssertionError(f"no region kernel ({', '.join(region)}) "
+                             "launched in the cephadm children")
+    if not counts.get(CRC_KERNEL[1]):
+        raise AssertionError("G1 never launched in the cephadm children")
+    by_osd = collections.Counter()
+    for st in res["incarnations"]:
+        by_osd[st["osd"]] += sum(v for c, v in st["launches"].items()
+                                 if c != "plain")
+    idle = [i for i in range(res["osds"]) if not by_osd[i]]
+    if idle:
+        raise AssertionError(f"cephadm: the children of OSDs {idle} "
+                             "launched no kernel")
+    built = [st["osd"] for st in res["incarnations"]
+             if st["cuda_lib"].get("built")]
+    if built:
+        raise AssertionError(f"cephadm: the children of OSDs {built} "
+                             "rebuilt the CUDA library")
+    if not res["contexts"]:
+        raise AssertionError("cephadm: no child reported")
+    if res["device"] == "cuda":
+        absent = [i for i, c in res["contexts"].items() if not c]
+        if absent:
+            raise AssertionError(f"cephadm: the children of OSDs {absent} "
+                                 "hold no CUDA context")
+        if not res["children_mib"] > 0:
+            raise AssertionError(f"cephadm: nvidia-smi shows no device "
+                                 f"memory of the children: "
+                                 f"{res['apps']} then {res['apps_after']}")
+    if res["scrub1"] or res["scrub2"]:
+        raise AssertionError(f"cephadm: deep scrub found "
+                             f"{res['scrub1'] or res['scrub2']}")
+    ls = res["ls"]
+    if len(ls) != res["osds"] + 1 or any(
+            d["state"] != "running" or (d["type"] == "osd" and not d["up"])
+            for d in ls):
+        raise AssertionError(f"cephadm: inventory {ls}")
+    if res["faults"]["op_timeouts"] or res["faults"]["dropped"]:
+        raise AssertionError(f"cephadm: {res['faults']['op_timeouts']} "
+                             f"ops timed out, {res['faults']['dropped']} "
+                             "messages dropped")
+    if res["flaps"]:
+        raise AssertionError(f"cephadm: {res['flaps']} flaps (downs "
+                             f"{dict(res['downs'])})")
+    if res["alive"]:
+        raise AssertionError(f"cephadm: children {res['alive']} alive "
+                             "after the teardown")
+
+
 def profile_totals() -> dict[str, list]:
     """kind -> [count, seconds] summed over the kernel profiler's
     signatures."""
@@ -3611,6 +4152,13 @@ def main() -> int:
         row["services_launches"] = svc_counts[KERNELS[realization][1]]
     sched_row["services_launches"] = svc_counts[SCHED_KERNEL[1]]
     crc_row["services_launches"] = svc_counts[CRC_KERNEL[1]]
+    adm_counts, adm_res = phase_cephadm(dev, np.random.default_rng(SEED))
+    check_cephadm(adm_counts, adm_res)
+    say("cephadm", f"phase 21: {adm_res['phase_s']:.1f} s")
+    for realization, row in kernels.items():
+        row["cephadm_launches"] = adm_counts[KERNELS[realization][1]]
+    sched_row["cephadm_launches"] = adm_counts[SCHED_KERNEL[1]]
+    crc_row["cephadm_launches"] = adm_counts[CRC_KERNEL[1]]
     say("done", f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())
                       + [sched_row, crc_row]}))

@@ -944,11 +944,153 @@ def test_services_check_refuses_each_fault(fault, match):
 def test_services_phase_sizes():
     """Phase 20 (b)'s sizes: an image of 512 MiB in rbd's 4 MiB objects
     on phase 17's cluster and pool, 64 MiB through each gateway at 1 MiB
-    a request, 2048 and 256 overwrites of 4 KiB, two OSDs lost."""
+    a request, 512 and 256 overwrites of 4 KiB (the first cut from 2048
+    for the whole run's time), two OSDs lost."""
     cfg = chip_smoke.SERVICES
     assert cfg["image"] // cfg["object_size"] == 128
     assert cfg["object_size"] == chip_smoke.OBJECT_SIZE == 4 << 20
     for key in ("osds", "pg_num", "k", "m", "lost"):
         assert cfg[key] == chip_smoke.OSD_PHASE[key]
     assert (cfg["gateway"], cfg["request"]) == (64 << 20, 1 << 20)
-    assert (cfg["overwrites"], cfg["snap_overwrites"]) == (2048, 256)
+    assert (cfg["overwrites"], cfg["snap_overwrites"]) == (512, 256)
+
+
+# ------------------------------------------------------------ phase 21
+#: phase 21 at a small size: 4 OSD children, k=2 m=1, 4 objects of 256
+#: KiB from 4 threads in 8 PGs, the writer's objects of 64 KiB; the
+#: grace of tests/test_torch_cephadm.py (a loaded box can stall a child
+#: interpreter past CephAdm's 2 s)
+SMALL_CEPHADM = dict(osds=4, k=2, m=1, objects=4, object_size=256 << 10,
+                     threads=4, pg_num=8, live_size=64 << 10,
+                     live_payloads=4, wait_s=60.0,
+                     cfg={"osd_heartbeat_grace": 5.0})
+KERNEL_COUNTERS = ("gf_bitterm", "gf_bitxor", "gf_bitmm", "gf_sched_xor",
+                   "crc32c_chunks")
+
+
+def _as_on_the_card(counts: dict, res: dict) -> tuple[dict, dict]:
+    """A CPU run's phase 21 made into one check_cephadm accepts: each
+    child's plain launches booked to K1 and G1 instead, and no faults."""
+    res = dict(res, faults={"op_timeouts": 0, "dropped": 0}, flaps=0,
+               alive=[], incarnations=[
+                   dict(st, launches=dict(
+                       st["launches"], plain=0,
+                       gf_bitterm=st["launches"]["plain"] + 1,
+                       crc32c_chunks=1)) for st in res["incarnations"]])
+    counts = dict(counts, plain=0, gf_bitterm=counts["plain"],
+                  crc32c_chunks=len(res["incarnations"]))
+    return counts, res
+
+
+def test_cephadm_phase_rehearsal_on_cpu(capsys):
+    """Phase 21 on the CPU: CephAdm deploys 4 osd_main children, the
+    objects are written and read back, deep-scrubbed, one child is
+    killed with SIGKILL and marked down on its peers' reports, every
+    object read back degraded, the child restarted, then the rolling
+    restart under a writer, everything read back and scrubbed, and no
+    child outlives the teardown.  The children ran the plain versions
+    (each read through its admin socket), which check_cephadm refuses;
+    made into a run the check accepts, it refuses each fault in turn."""
+    counts, res = chip_smoke.phase_cephadm(
+        torch.device("cpu"), np.random.default_rng(5), **SMALL_CEPHADM)
+    out = capsys.readouterr().out
+    assert "[cephadm] 4 osd_main children: deploy" in out
+    assert counts["plain"] > 0
+    assert all(counts[c] == 0 for c in KERNEL_COUNTERS)
+    assert res["parent"]["plain"] == 0
+    assert res["order"] == [0, 1, 2, 3] and len(res["steps"]) == 4
+    assert res["live_objects"] > 0
+    assert res["scrub1"] == res["scrub2"] == []
+    # every child read once before it was killed, and at the end
+    assert sorted(st["osd"] for st in res["incarnations"]) == \
+        sorted([0, 1, 2, 3] * 2 + [res["victim"]])
+    assert len({st["pid"] for st in res["incarnations"]}) == 9
+    assert res["downs"][(res["victim"], "failure")] >= 1
+    assert [d["daemon"] for d in res["ls"]] == \
+        ["mon.0", "osd.0", "osd.1", "osd.2", "osd.3"]
+    assert res["alive"] == []
+    with pytest.raises(AssertionError, match="a plain version ran"):
+        chip_smoke.check_cephadm(counts, res)
+    good = _as_on_the_card(counts, res)
+    chip_smoke.check_cephadm(*good)
+    idle = dict(good[1], incarnations=[
+        dict(st, launches=dict.fromkeys(st["launches"], 0))
+        if st["osd"] == 2 else st for st in good[1]["incarnations"]])
+    for bad, match in (
+            (dict(good[1], faults={"op_timeouts": 1, "dropped": 0}),
+             "1 ops timed out"),
+            (dict(good[1], flaps=1), "1 flaps"),
+            (idle, r"OSDs \[2\] launched no kernel"),
+            (dict(good[1], alive=[4242]), r"children \[4242\] alive")):
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_cephadm(good[0], bad)
+
+
+def cephadm_result(**over) -> tuple[dict, dict]:
+    """Counts and numbers of a phase 21 that check_cephadm accepts."""
+    launches = {"gf_bitterm": 2, "gf_bitxor": 1, "gf_bitmm": 9,
+                "gf_sched_xor": 0, "crc32c_chunks": 4, "plain": 0}
+    incs = [{"osd": i % 12, "pid": 100 + i, "launches": dict(launches),
+             "cuda_lib": {"seconds": 0.1, "built": False}}
+            for i in range(25)]
+    counts = {c: 25 * n for c, n in launches.items()}
+    ls = [{"daemon": "mon.0", "type": "mon", "state": "running"}] + [
+        {"daemon": f"osd.{i}", "type": "osd", "state": "running",
+         "up": True} for i in range(12)]
+    res = {"osds": 12, "device": "cuda", "incarnations": incs,
+           "contexts": dict.fromkeys(range(12), True),
+           "apps": {1: 7344}, "apps_after": {1: 564}, "children_mib": 6780,
+           "scrub1": [], "scrub2": [], "ls": ls,
+           "faults": {"op_timeouts": 0, "dropped": 0}, "flaps": 0,
+           "downs": {}, "alive": []}
+    for key, value in over.items():
+        if key == "counts":
+            counts.update(value)
+        elif key == "idle_osd":
+            for st in incs:
+                if st["osd"] == value:
+                    st["launches"] = dict.fromkeys(launches, 0)
+        elif key == "built":
+            incs[3]["cuda_lib"] = {"seconds": 30.0, "built": True}
+        elif key == "down":
+            ls[5] = dict(ls[5], up=False)
+        else:
+            res[key] = value
+    return counts, res
+
+
+@pytest.mark.parametrize("fault,match", [
+    ({"counts": {"plain": 3}}, "a plain version ran 3 times in the "
+                               "cephadm children"),
+    ({"counts": {"gf_bitterm": 0, "gf_bitxor": 0, "gf_bitmm": 0}},
+     "no region kernel"),
+    ({"counts": {"crc32c_chunks": 0}}, "G1 never launched"),
+    ({"idle_osd": 7}, r"OSDs \[7\] launched no kernel"),
+    ({"built": True}, r"OSDs \[3\] rebuilt the CUDA library"),
+    ({"contexts": {i: i != 1 for i in range(12)}},
+     r"the children of OSDs \[1\] hold no CUDA context"),
+    ({"children_mib": 0}, "nvidia-smi shows no device memory"),
+    ({"scrub2": [{"oid": "obj0003"}]}, "deep scrub found"),
+    ({"down": True}, "inventory"),
+    ({"faults": {"op_timeouts": 2, "dropped": 0}}, "2 ops timed out"),
+    ({"faults": {"op_timeouts": 0, "dropped": 5}}, "5 messages dropped"),
+    ({"flaps": 1}, "1 flaps"),
+    ({"alive": [31337]}, r"children \[31337\] alive after the teardown"),
+])
+def test_cephadm_check_refuses_each_fault(fault, match):
+    chip_smoke.check_cephadm(*cephadm_result())
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_cephadm(*cephadm_result(**fault))
+
+
+def test_cephadm_phase_sizes():
+    """Phase 21's sizes: 12 OSD children, a tpu k=8 m=3 pool at pg_num
+    32, 64 objects of 4 MiB from 8 threads (256 MiB, phase 17's size
+    before its cut to 32), the writer's objects of 1 MiB, and CephAdm's
+    own config over the defaults."""
+    cfg = chip_smoke.CEPHADM
+    assert cfg["osds"] == 12 and cfg["pg_num"] == 32
+    assert (cfg["k"], cfg["m"]) == (8, 3)
+    assert (cfg["objects"], cfg["threads"]) == (64, 8)
+    assert cfg["object_size"] == chip_smoke.OBJECT_SIZE == 4 << 20
+    assert cfg["live_size"] == 1 << 20 and cfg["cfg"] is None

@@ -28,7 +28,13 @@
   it caches the codec of a pool on the card, and never for a pool on
   the CPU; a map that brings an EC pool has its codec built, and so the
   library loaded, before the map reaches the op handlers.
+- A lost member: a write waiting on an OSD that a new map marks down is
+  failed at once with EAGAIN, which the client retries on the new map
+  (the JAX package waits out ``osd_op_timeout`` and answers EIO).
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -461,3 +467,85 @@ def test_op_queue_cap_drops_clients_but_never_peers(bare_osd, monkeypatch):
         assert osd.ms_dispatch(client, MPGList(tid, pgid))
     assert osd.scheduler.dropped["system"] == 4
     assert osd.scheduler.queue_depths()["system"] == 4
+
+
+@pytest.mark.parametrize("kind", ["replicated", "ec"])
+def test_a_write_waiting_on_a_lost_member_is_retried_at_once(kind):
+    """The primary's sub-write to one member is cut off, so the write
+    waits for its ack; the member is then lost and marked down.  The map
+    that says so fails the write at once (``ops_reset_on_down``, not
+    ``op_timeouts``), and the client's retry lands on the new map long
+    before the 60 s op timeout; the object reads back."""
+    torch.set_num_threads(1)
+    c = MiniCluster(n_osds=4, cfg=make_cfg(
+        osd_op_timeout=60.0, osd_heartbeat_grace=30.0)).start()
+    try:
+        client = c.client()
+        if kind == "ec":
+            client.create_pool("p", kind="ec", pg_num=1, ec_profile={
+                "plugin": "tpu", "k": "2", "m": "1", "device": "cpu"})
+        else:
+            client.create_pool("p", size=3, pg_num=1)
+        client.write_full("p", "warm", b"w" * 4096)  # the PG has peered
+        pid = client._pool_id("p")
+        primary, member = client.osdmap.pg_to_up_osds(pid, 0)[:2]
+        c.network.partition(f"osd.{primary}", f"osd.{member}")
+        data = RNG.integers(0, 256, 8192, dtype=np.uint8).tobytes()
+        done: dict = {}
+
+        def write():
+            try:
+                client.write_full("p", "x", data)
+            except Exception as e:  # noqa: BLE001 - asserted below
+                done["error"] = e
+            done["at"] = time.monotonic()
+
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 10
+        while not c.osds[primary]._pending_writes:
+            assert time.monotonic() < deadline, "the write never waited"
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        c.kill_osd(member)
+        t.join(30)
+        assert not t.is_alive() and "error" not in done, done
+        assert done["at"] - t0 < 15
+        perf = c.osds[primary].perf
+        assert c.osds[primary].ops_reset_on_down >= 1
+        assert perf.get("op_timeouts") == 0
+        assert client.read("p", "x") == data
+    finally:
+        c.network.heal()
+        c.stop()
+
+
+def test_a_read_waiting_on_a_lost_member_completes_on_the_map(bare_osd):
+    """A recovery fetch and a client read each wait on a sub-read sent
+    to OSD 5; the map that marks OSD 5 down answers those sub-reads as
+    failed reads, so the fetch's callback runs and the read completes
+    on the live members' chunks, at once, not at the op timeout."""
+    osd = bare_osd({1: dict(TPU, device="cpu")})  # k = 4
+    omap = OSDMap()
+    for o in (0, 4, 5):
+        omap.add_osd(o, f"host{o}")
+        omap.mark_up(o)
+    done = []
+    fetch = daemon._PendingRead(None, 0, 1, "x", total_shards=1,
+                                on_done=done.append, asked={2: 5})
+    read = daemon._PendingRead(None, 0, 1, "y", total_shards=3,
+                               on_done=done.append, asked={1: 4, 2: 5})
+    read.replies, read.chunks = 1, {0: np.zeros(4, np.uint8)}
+    osd._pending_reads.update({11: fetch, 12: read})
+    osd._reset_ops_on_down(omap)  # every member up: nothing happens
+    assert not done and len(osd._pending_reads) == 2
+    omap.mark_down(5)
+    osd._reset_ops_on_down(omap)
+    assert done == [fetch]  # the read still waits on OSD 4
+    assert fetch.replies == 1 and not fetch.chunks
+    assert read.asked == {1: 4} and read.replies == 2
+    osd._on_shard_read(12, 1, 0, b"\1" * 4, {})
+    assert done == [fetch, read] and sorted(read.chunks) == [0, 1]
+    assert not osd._pending_reads
+    assert osd.ops_reset_on_down == 2
+    assert osd.perf.get("op_timeouts") == 0
