@@ -27,6 +27,9 @@ import ceph_tpu_torch
 
 from .profiles import LegResult, LegSpec
 
+#: how long the reap of a worker killed at its deadline may take
+REAP_DEADLINE_S = 10.0
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(
     ceph_tpu_torch.__file__)))
 
@@ -201,7 +204,11 @@ class LoadGenerator:
                     errors.append(f"worker {i}: no exit in {timeout:.0f}s"
                                   " (deadlock invariant trip)")
                     proc.kill()
-                    proc.wait()
+                    try:
+                        proc.wait(timeout=REAP_DEADLINE_S)
+                    except subprocess.TimeoutExpired:
+                        errors.append(f"worker {i}: not reaped "
+                                      f"{REAP_DEADLINE_S} s after SIGKILL")
                     continue
                 self._readers[2 * i].join(timeout=5.0)
                 self._readers[2 * i + 1].join(timeout=5.0)

@@ -812,6 +812,19 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         #: ops that waited on an OSD a map marked down, answered at once
         #: (_reset_ops_on_down: writes EAGAIN, sub-reads as failed reads)
         self.ops_reset_on_down = 0
+        #: the newest epoch of a peering query this OSD answered, a PG:
+        #: a client op it admitted under an older map is refused
+        #: (EAGAIN), since the new primary peered on an inventory
+        #: without that op (Ceph's replica leaves an interval it has
+        #: answered for; _handle_pg_query, _handle_client_op)
+        self._answered_epoch: dict[PgId, int] = {}
+        #: a PG's guard: the inventory an answer walks and a client
+        #: op's check-and-apply never interleave (the deferred answer
+        #: runs on a timer thread, not the PG's shard)
+        self._pg_guards: dict[PgId, threading.RLock] = {}
+        #: client ops refused because they were admitted under a map
+        #: older than a peering query answered for their PG
+        self.ops_refused_handed_over = 0
         self._ec_cache = ECExtentCache(
             on_evict=lambda: self.perf.inc("ec_read_tier_evict"))
         # hot-read tier admission state (zipf-aware second-hit
@@ -1422,9 +1435,15 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         if old is None or newmap.epoch > old.epoch:
             self._split_pgs(old, newmap)
             self._merge_pgs(old, newmap)
-            self._applied_epoch = newmap.epoch
             self._note_intervals()
-            self._start_recovery()
+            try:
+                self._start_recovery()
+            finally:
+                # applied once this map's peering rounds are armed:
+                # until then a client op sees the new map but no peering
+                # gate (_handle_client_op refuses it), and a peer's
+                # query waits
+                self._applied_epoch = newmap.epoch
             self._notify_demoted(old)
             self._snap_trim_check()
 
@@ -1612,6 +1631,8 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 conn.send(MOSDOpReply(m.tid, EACCES,
                                       epoch=self.osdmap.epoch))
                 return
+        # the map this op is admitted under (the primary check below)
+        admit_epoch = self.osdmap.epoch
         seed = self.osdmap.object_to_pg(m.pool, m.oid)
         up = self.osdmap.pg_to_up_osds(m.pool, seed)
         pgid = PgId(m.pool, seed)
@@ -1627,12 +1648,41 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 conn.send(MOSDOpReply(m.tid, ESTALE,
                                       epoch=self.osdmap.epoch))
                 return
+        if self._applied_epoch < admit_epoch:
+            # the map is published but its peering rounds are not armed
+            # yet (_handle_map): as a new primary I would answer from a
+            # store that has not peered, ENOENT for an acked write
+            conn.send(MOSDOpReply(m.tid, EAGAIN, epoch=self.osdmap.epoch))
+            return
         # peering gate: block IO until inventories (and the objects we are
         # known to be behind on) have caught up — read-your-writes safety
         if pgid in self._peering or (
                 m.oid in self._stale_objects.get(pgid, ())):
             conn.send(MOSDOpReply(m.tid, EAGAIN, epoch=self.osdmap.epoch))
             return
+        with self._pg_guard(pgid):
+            if self._answered_epoch.get(pgid, 0) > admit_epoch:
+                # I answered a newer map's peering query for this PG:
+                # its new primary closed peering on my inventory, which
+                # lacks this op.  Acked here, a write would be unknown
+                # to that primary, which answers ENOENT for it.  The
+                # client retries on the new map.
+                self.ops_refused_handed_over += 1
+                conn.send(MOSDOpReply(m.tid, EAGAIN,
+                                      epoch=self.osdmap.epoch))
+                return
+            self._run_client_op(conn, m, pool, pgid, up, balanced)
+
+    def _pg_guard(self, pgid: PgId) -> threading.RLock:
+        g = self._pg_guards.get(pgid)
+        if g is None:
+            g = self._pg_guards.setdefault(pgid, threading.RLock())
+        return g
+
+    def _run_client_op(self, conn, m: MOSDOp, pool, pgid: PgId, up: list,
+                       balanced: bool) -> None:
+        """An admitted client op: the lease revoke, its span, and the
+        handler of its op and pool kind."""
         if m.op in self._LEASE_REVOKE_OPS:
             # write choke point (primary only — mutations never ride the
             # balanced path): drop + notify every outstanding read lease
@@ -5220,6 +5270,15 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             t.daemon = True
             t.start()
             return
+        with self._pg_guard(m.pgid):
+            # from here on no client op admitted under an older map
+            # runs in this PG (_handle_client_op): the answer below is
+            # all the new primary learns of this member's writes
+            if m.epoch > self._answered_epoch.get(m.pgid, 0):
+                self._answered_epoch[m.pgid] = m.epoch
+            self._answer_pg_query(conn, m)
+
+    def _answer_pg_query(self, conn, m: MPGQuery) -> None:
         # ONE log decode feeds head/floor/evs (the peering hot path —
         # every query/info otherwise re-reads the whole omap window)
         ents = self._pglog(m.pgid).entries()

@@ -24,6 +24,9 @@ import socket
 import subprocess
 import sys
 
+#: how long the reap of a worker killed in ``launch``'s cleanup may take
+REAP_DEADLINE_S = 10.0
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -151,11 +154,12 @@ def launch(num_processes: int = 2, devices_per_host: int = 4,
             results.append(json.loads(out.strip().splitlines()[-1]))
     finally:
         # one failed worker must not orphan the others (they block in
-        # init_process_group or a collective)
+        # init_process_group or a collective); a reap that outlives its
+        # deadline raises rather than holding the caller for good
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=REAP_DEADLINE_S)
     return results
 
 

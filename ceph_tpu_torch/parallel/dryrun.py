@@ -43,6 +43,9 @@ from .distributed import DistributedStripeEC
 #: the recovery leg's survivors: chunks 1, 4 and 9 lost
 AVAILABLE = [0, 2, 3, 5, 6, 7, 8, 10]
 
+#: how long ``batcher_leg`` waits for its writers before it raises
+JOIN_DEADLINE_S = 300.0
+
 
 def _no_clock(name):
     return contextlib.nullcontext()
@@ -174,14 +177,17 @@ def batcher_leg(n_devices: int, device: str, payloads: list, *,
         except Exception as e:  # noqa: BLE001 - raised below
             errors.append(e)
 
-    threads = [threading.Thread(target=enc, args=(i,))
+    threads = [threading.Thread(target=enc, args=(i,), daemon=True)
                for i in range(len(payloads))]
     threads[0].start()
     time.sleep(0.05)  # the leader parks in its window first
     for t in threads[1:]:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=JOIN_DEADLINE_S)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"a batcher writer still runs after "
+                           f"{JOIN_DEADLINE_S} s")
     if errors:
         raise errors[0]
     for i, (data, r) in enumerate(zip(payloads, res)):

@@ -248,7 +248,9 @@ def process_status(osd) -> dict:
     built); whether the process holds a CUDA context and the bytes its
     caching allocator holds on the card; the wall-clock stamps of the
     process's start (``_START``); the ops answered at once because a map
-    marked their member down; and the OSD's ops that waited out
+    marked their member down; the client ops refused because their PG
+    was handed to a newer map's primary after they were admitted
+    (``ops_refused_handed_over``); and the OSD's ops that waited out
     ``osd_op_timeout`` (the last described) and messages dropped by its
     messenger's throttle and its op queues' caps."""
     import torch
@@ -273,6 +275,7 @@ def process_status(osd) -> dict:
         "start": dict(_START),
         "timed_out": list(osd.timed_out_ops),
         "ops_reset_on_down": osd.ops_reset_on_down,
+        "ops_refused_handed_over": osd.ops_refused_handed_over,
         "faults": {
             "op_timeouts": osd.perf.get("op_timeouts"),
             "dropped": (osd.messenger.perf.get("msg_drop_backpressure")

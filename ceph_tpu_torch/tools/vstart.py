@@ -24,7 +24,14 @@ from ..osd.daemon import OSDDaemon
 from ..utils.admin_socket import asok_path
 from ..utils.config import Config, default_config
 
-__all__ = ["ForkServer", "MiniCluster", "asok_path", "pid_running"]
+__all__ = ["ForkServer", "MiniCluster", "asok_path", "kill_and_reap",
+           "pid_running"]
+
+#: how long a wait on an OSD child or a fork server may take before it
+#: gives up: ``ForkedOSD.wait`` with no timeout, and the reap after a
+#: SIGKILL (``kill_and_reap``)
+WAIT_DEADLINE_S = 60.0
+REAP_DEADLINE_S = 10.0
 
 
 def pid_running(pid: int) -> bool:
@@ -35,6 +42,18 @@ def pid_running(pid: int) -> bool:
             return f.read().rsplit(")", 1)[1].split()[0] != "Z"
     except FileNotFoundError:
         return False
+
+
+def kill_and_reap(proc, timeout: float = REAP_DEADLINE_S) -> None:
+    """SIGKILL ``proc`` (a Popen or a ForkedOSD) and wait at most
+    ``timeout`` s for its exit; raises subprocess.TimeoutExpired if it
+    has not exited by then (a child stuck in the kernel), rather than
+    waiting for good."""
+    try:
+        proc.kill()
+    except OSError:
+        pass
+    proc.wait(timeout=timeout)
 
 
 def _osd_env(env: dict | None) -> dict:
@@ -73,17 +92,25 @@ class ForkedOSD:
         return self.returncode
 
     def wait(self, timeout: float | None = None) -> int:
-        deadline = None if timeout is None else time.monotonic() + timeout
+        """The OSD's exit code, once the server reports it (or, the
+        server gone, once the OSD no longer runs).  ``timeout`` None
+        waits at most WAIT_DEADLINE_S: past it, like past ``timeout``,
+        subprocess.TimeoutExpired is raised."""
+        timeout = WAIT_DEADLINE_S if timeout is None else timeout
+        deadline = time.monotonic() + timeout
         while True:
-            left = None if deadline is None else deadline - time.monotonic()
-            rc = self._server.wait_exit(self.pid, 0.1 if left is None
-                                        else max(0.0, min(0.1, left)))
+            step = max(0.0, min(0.1, deadline - time.monotonic()))
+            rc = self._server.wait_exit(self.pid, step)
             rc = self.returncode if rc is None else rc
             if rc is not None:
                 return rc
-            if deadline is not None and time.monotonic() >= deadline:
+            if time.monotonic() >= deadline:
                 raise subprocess.TimeoutExpired(f"osd pid {self.pid}",
                                                 timeout)
+            if self._server.proc.poll() is not None:
+                # no server left to report: wait_exit returns at once,
+                # so pace the polls of the OSD's pid
+                time.sleep(step)
 
     def send_signal(self, sig: int) -> None:
         if self.returncode is None:
@@ -160,7 +187,8 @@ class ForkServer:
             return self._exits.get(pid)
 
     def stop(self) -> None:
-        """Close the server's stdin, so it exits; wait for it."""
+        """Close the server's stdin, so it exits; wait for it (then
+        kill and reap it, bounded: ``kill_and_reap``)."""
         try:
             self.proc.stdin.close()
         except OSError:
@@ -168,8 +196,7 @@ class ForkServer:
         try:
             self.proc.wait(timeout=10)
         except subprocess.TimeoutExpired:
-            self.proc.kill()
-            self.proc.wait()
+            kill_and_reap(self.proc)
 
 
 class MiniCluster:
@@ -449,12 +476,16 @@ class MiniCluster:
                 p.terminate()
             except OSError:
                 pass
-        for p in self.procs.values():
+        unreaped = []
+        for osd_id, p in self.procs.items():
             try:
                 p.wait(timeout=5)
             except Exception:  # noqa: BLE001
-                p.kill()
-                p.wait()  # reap — no zombies across a test session
+                try:
+                    # reap — no zombies across a test session
+                    kill_and_reap(p)
+                except subprocess.TimeoutExpired:
+                    unreaped.append(osd_id)
         for server in self._fork_servers.values():
             server.stop()
         for m in self.mons.values():
@@ -465,6 +496,10 @@ class MiniCluster:
             self.exporter.stop()
         if hasattr(self.network, "stop"):
             self.network.stop()
+        if unreaped:
+            # the rest of the teardown ran; say which children did not
+            raise RuntimeError(f"OSD children {unreaped} not reaped "
+                               f"{REAP_DEADLINE_S} s after SIGKILL")
 
     # ------------------------------------------------------------- helpers
     def _best_epoch_map(self):
@@ -507,8 +542,7 @@ class MiniCluster:
             self._drop_admin_socket(osd.name)
         proc = self.procs.pop(osd_id, None)
         if proc is not None:
-            proc.kill()
-            proc.wait()
+            kill_and_reap(proc)
         if mark_down and self.clients:
             self.clients[0].mon_command({"prefix": "osd down",
                                          "id": osd_id})

@@ -3772,6 +3772,9 @@ def phase_cephadm(dev: torch.device, rng: np.random.Generator,
         wclient = adm.cluster.client()
 
         retries: list = []  # (seconds into the staircase, error)
+        # acked writes that did not read back at once: (seconds into
+        # the staircase, object, error or "other bytes")
+        unreadable: list = []
 
         def write_live():
             i = 0
@@ -3792,14 +3795,18 @@ def phase_cephadm(dev: torch.device, rng: np.random.Generator,
                             errors.append(e)
                             return
                         time.sleep(0.5)
+                # the write was acked: read it back at once, and count
+                # each that does not come back (the writer goes on)
                 try:
-                    if wclient.read(CEPHADM_POOL, name) != data:
-                        raise AssertionError(f"cephadm: {name} read back "
-                                             "wrong after its write")
+                    got = wclient.read(CEPHADM_POOL, name)
+                    why = None if got == data else "other bytes"
+                except Exception as e:  # noqa: BLE001 - counted
+                    why = repr(e)
+                if why is None:
                     written[name] = i % len(live)
-                except Exception as e:  # noqa: BLE001
-                    errors.append(e)
-                    return
+                else:
+                    unreadable.append((round(time.perf_counter() - t1, 3),
+                                       name, why[:120]))
                 i += 1
                 time.sleep(0.05)
 
@@ -3849,6 +3856,11 @@ def phase_cephadm(dev: torch.device, rng: np.random.Generator,
         res["staircase_s"] = time.perf_counter() - t1
         res["steps"] = steps
         res["writer_retries"] = retries
+        res["acked_unreadable"] = len(unreadable)
+        res["unreadable"] = unreadable[:12]
+        if unreadable:
+            say("cephadm", f"{len(unreadable)} acked writes did not read "
+                           f"back, the first: {unreadable[:12]}")
         if writer.is_alive():
             raise AssertionError("cephadm: the writer did not stop")
         if errors:
@@ -3899,6 +3911,8 @@ def phase_cephadm(dev: torch.device, rng: np.random.Generator,
     res["flaps"] = sum((res["downs"] - want).values())
     res["missed_downs"] = sum((want - res["downs"]).values())
     counts, res["faults"] = _child_sums(incarnations)
+    res["refused_handed_over"] = sum(st.get("ops_refused_handed_over", 0)
+                                     for st in incarnations)
     res["parent"] = ec_kernels.launch_counts()
     res["incarnations"] = incarnations
     stages = collections.defaultdict(list)
@@ -3980,7 +3994,10 @@ def cephadm_line(res: dict, counts: dict, gib: float,
             f"{res.get('children_mib')} MiB); "
             f"{res['faults']['op_timeouts']} ops timed out, "
             f"{res['faults']['dropped']} messages dropped, "
-            f"{res['flaps']} flaps; this process's launches "
+            f"{res['flaps']} flaps, {res['acked_unreadable']} acked "
+            f"writes unreadable, {res['refused_handed_over']} ops "
+            f"refused after their PG was handed over; this process's "
+            f"launches "
             f"{json.dumps(res['parent'])}; {card(dev)}; phase "
             f"{res['phase_s']:.1f} s")
 
@@ -3995,8 +4012,9 @@ def check_cephadm(counts: dict[str, int], res: dict) -> None:
     cannot be matched); both deep scrubs were clean; the
     inventory showed every daemon running and every OSD up; no op
     waited out the op timeout, no message was dropped, no OSD was
-    marked down but by the phase's own steps; and no child outlived the
-    teardown."""
+    marked down but by the phase's own steps; every write the
+    staircase's writer saw acked read back at once; and no child
+    outlived the teardown."""
     say("launches", f"cephadm: {json.dumps(counts)}")
     if counts.get("plain"):
         raise AssertionError(f"a plain version ran {counts['plain']} "
@@ -4046,6 +4064,10 @@ def check_cephadm(counts: dict[str, int], res: dict) -> None:
     if res["flaps"]:
         raise AssertionError(f"cephadm: {res['flaps']} flaps (downs "
                              f"{dict(res['downs'])})")
+    if res["acked_unreadable"]:
+        raise AssertionError(f"cephadm: {res['acked_unreadable']} acked "
+                             f"writes did not read back: "
+                             f"{res['unreadable']}")
     if res["alive"]:
         raise AssertionError(f"cephadm: children {res['alive']} alive "
                              "after the teardown")

@@ -150,6 +150,7 @@ def test_children_answer_dump_process(adm):
         assert st["pid"] == pids[f"osd.{osd_id}"]
         assert st["launches"]["plain"] == 0
         assert set(st["faults"]) == {"op_timeouts", "dropped"}
+        assert st["ops_refused_handed_over"] >= 0
         assert st["cuda_lib"] == {}
         assert st["ec_pools"] == []
         # forked by CephAdm's fork server; no card
@@ -262,7 +263,7 @@ def test_forked_osds_outlive_no_dead_fork_server(tmp_path):
         assert proc.pid != server.proc.pid and proc.poll() is None
         assert vstart.pid_running(proc.pid)
         server.proc.kill()
-        server.proc.wait()
+        server.proc.wait(timeout=30)
         deadline = time.monotonic() + 30
         while vstart.pid_running(proc.pid):
             assert time.monotonic() < deadline, "the forked OSD outlived " \

@@ -1000,6 +1000,9 @@ def test_cephadm_phase_rehearsal_on_cpu(capsys):
     assert res["parent"]["plain"] == 0
     assert res["order"] == [0, 1, 2, 3] and len(res["steps"]) == 4
     assert res["live_objects"] > 0
+    # the writer read each acked write back at once, and every one came
+    # back: the objects it kept are exactly the acked ones
+    assert res["acked_unreadable"] == 0 and res["unreadable"] == []
     assert res["scrub1"] == res["scrub2"] == []
     # every child read once before it was killed, and at the end
     assert sorted(st["osd"] for st in res["incarnations"]) == \
@@ -1020,6 +1023,9 @@ def test_cephadm_phase_rehearsal_on_cpu(capsys):
             (dict(good[1], faults={"op_timeouts": 1, "dropped": 0}),
              "1 ops timed out"),
             (dict(good[1], flaps=1), "1 flaps"),
+            (dict(good[1], acked_unreadable=1,
+                  unreadable=[(1.5, "live00007", "RadosError(-2)")]),
+             "1 acked writes did not read back"),
             (idle, r"OSDs \[2\] launched no kernel"),
             (dict(good[1], alive=[4242]), r"children \[4242\] alive")):
         with pytest.raises(AssertionError, match=match):
@@ -1042,6 +1048,7 @@ def cephadm_result(**over) -> tuple[dict, dict]:
            "apps": {1: 7344}, "apps_after": {1: 564}, "children_mib": 6780,
            "scrub1": [], "scrub2": [], "ls": ls,
            "faults": {"op_timeouts": 0, "dropped": 0}, "flaps": 0,
+           "acked_unreadable": 0, "unreadable": [],
            "downs": {}, "alive": []}
     for key, value in over.items():
         if key == "counts":
@@ -1076,6 +1083,9 @@ def cephadm_result(**over) -> tuple[dict, dict]:
     ({"faults": {"op_timeouts": 0, "dropped": 5}}, "5 messages dropped"),
     ({"flaps": 1}, "1 flaps"),
     ({"alive": [31337]}, r"children \[31337\] alive after the teardown"),
+    ({"acked_unreadable": 1, "unreadable": [(2.25, "live00031", "RadosError("
+                                             "-2, 'read cephadm/live00031')")]},
+     r"1 acked writes did not read back: \[\(2.25, 'live00031'"),
 ])
 def test_cephadm_check_refuses_each_fault(fault, match):
     chip_smoke.check_cephadm(*cephadm_result())

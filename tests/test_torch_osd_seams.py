@@ -31,6 +31,12 @@
 - A lost member: a write waiting on an OSD that a new map marks down is
   failed at once with EAGAIN, which the client retries on the new map
   (the JAX package waits out ``osd_op_timeout`` and answers EIO).
+- A handed-over PG: an OSD that has answered a newer map's peering query
+  for a PG refuses (EAGAIN) a client op it admitted under an older map,
+  so a write its new primary never heard of is never acked (the JAX
+  package acks it, and the new primary answers ENOENT for it); and a
+  new primary refuses ops on a map whose peering rounds it has not yet
+  armed (the JAX package reads its unpeered store: ENOENT).
 """
 
 import threading
@@ -42,7 +48,9 @@ import torch
 
 from ceph_tpu_torch.ec import ErasureCodeError
 from ceph_tpu_torch.mon.maps import OSDMap, PoolSpec
-from ceph_tpu_torch.msg.messages import PgId
+from ceph_tpu_torch.client.rados import RadosError
+from ceph_tpu_torch.msg.messages import (MMonSubscribe, MOSDOp, MPGInfo,
+                                         MPGQuery, PgId)
 from ceph_tpu_torch.msg.messenger import LocalNetwork
 from ceph_tpu_torch.ops import ec_kernels
 from ceph_tpu_torch.osd import daemon
@@ -549,3 +557,143 @@ def test_a_read_waiting_on_a_lost_member_completes_on_the_map(bare_osd):
     assert not osd._pending_reads
     assert osd.ops_reset_on_down == 2
     assert osd.perf.get("op_timeouts") == 0
+
+
+class _Noting:
+    """A connection that sets ``sent`` once an MPGInfo leaves on it."""
+
+    def __init__(self, conn, sent: threading.Event):
+        self._conn, self._sent = conn, sent
+
+    def send(self, msg):
+        if isinstance(msg, MPGInfo):
+            self._sent.set()
+        return self._conn.send(msg)
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+
+def test_an_acked_write_reads_back_after_its_pg_is_handed_over():
+    """The rolling restart's unreadable acked write, staged.  Size 2 on
+    3 OSDs: A is killed and marked down, so B is primary of the PG on
+    map E1.  B's and the client's links to the monitor are cut, so both
+    stay on E1 while A comes back and map E2 makes A primary again.  A
+    queries B; B has not applied E2, defers, and answers with what it
+    has (``_handle_pg_query``'s bounded deferral).  Only then does the
+    client, still on E1, write an object through B.
+
+    The JAX package behaves as the port did before the repair: B admits
+    the write under E1 and acks it (``ceph_tpu/osd/daemon.py:1552``, the
+    peering gate, is its only check), while A, whose peering closed on
+    B's answer, never learns of the object and its ``_rep_read``
+    (``:1805``) answers ENOENT; B's answer is ``_handle_pg_query``
+    (``:5055``).  In the port B refuses the op (EAGAIN) once it has
+    answered E2's query; the client's retry lands on A on E2, and the
+    object reads back."""
+    torch.set_num_threads(1)
+    c = MiniCluster(n_osds=3, cfg=make_cfg(
+        osd_op_timeout=60.0, osd_heartbeat_grace=30.0)).start()
+    try:
+        client = c.client()
+        client.create_pool("p", size=2, pg_num=1)
+        client.write_full("p", "warm", b"w" * 1024)
+        pid = client._pool_id("p")
+        a = client.osdmap.pg_to_up_osds(pid, 0)[0]
+        store = c.kill_osd(a)
+        deadline = time.monotonic() + 30
+        while True:  # B has peered on E1 and serves (a listing answers)
+            try:
+                assert client.list_objects("p") == ["warm"]
+                break
+            except RadosError:
+                assert time.monotonic() < deadline, "B never served"
+                time.sleep(0.05)
+        e1 = client.osdmap.epoch
+        b = client.osdmap.pg_to_up_osds(pid, 0)[0]
+        assert b != a
+        answered = threading.Event()
+        handle = c.osds[b]._handle_pg_query
+        c.osds[b]._handlers[MPGQuery] = lambda conn, m: handle(
+            _Noting(conn, answered) if m.epoch > e1 else conn, m)
+        c.network.partition("mon.0", f"osd.{b}")
+        c.network.partition("mon.0", client.name)
+        c.revive_osd(a, store)
+        assert answered.wait(30), "B never answered A's query"
+        assert c.osds[b].osdmap.epoch == client.osdmap.epoch == e1
+        data = RNG.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+        done: dict = {}
+
+        def write():
+            for _attempt in range(20):  # an unacked write may be retried
+                try:
+                    client.write_full("p", "x", data)
+                    done["acked"] = True
+                    return
+                except RadosError as e:
+                    done["error"] = e
+                    time.sleep(0.2)
+
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        deadline = time.monotonic() + 30
+        while not done and not getattr(c.osds[b],
+                                       "ops_refused_handed_over", 0):
+            assert time.monotonic() < deadline, "the write never reached B"
+            time.sleep(0.01)
+        # the links come back; B and the client ask for the maps they
+        # missed, and the object is read on E2, through A
+        c.network.heal()
+        for who in (c.osds[b], client):
+            who.messenger.send_message(who.mon, MMonSubscribe(
+                "osdmap", have_epoch=e1))
+        t.join(60)
+        assert not t.is_alive() and done.get("acked"), done
+        reader = c.client()
+        assert reader.osdmap.pg_to_up_osds(pid, 0)[0] == a
+        assert reader.read("p", "x") == data
+        assert c.osds[b].ops_refused_handed_over >= 1
+    finally:
+        c.network.heal()
+        c.stop()
+
+
+class _Replies:
+    def __init__(self):
+        self.sent = []
+
+    def send(self, msg):
+        self.sent.append(msg)
+
+
+def test_a_new_primary_serves_no_op_before_its_peering_is_armed():
+    """``_handle_map`` publishes a map to the op handlers before it arms
+    that map's peering rounds (``_start_recovery``).  An OSD that the
+    published map makes primary, with no peering round armed yet, is
+    asked for an object it does not hold: it answers EAGAIN (the client
+    retries once the round gates the PG), not ENOENT from a store that
+    has not peered.  Seen in the rolling restart: a write acked by the
+    old primary read back ENOENT for 0.4 s from the new one.  The JAX
+    package answers ENOENT: it sets ``_applied_epoch`` before
+    ``_start_recovery`` (``ceph_tpu/osd/daemon.py:1395``) and gates ops
+    only on ``_peering`` (``:1552``)."""
+    osd = daemon.OSDDaemon(0, LocalNetwork(), cfg=make_cfg())
+    try:
+        omap = OSDMap()
+        omap.add_osd(0, "host0")
+        omap.mark_up(0)
+        omap.pools[1] = PoolSpec(1, "p", "replicated", 2, 1, 1)
+        omap.epoch = 7
+        osd.osdmap = omap
+        osd._ensure_collections()
+        osd._applied_epoch = 6  # published, its peering not yet armed
+        conn = _Replies()
+        osd._handle_client_op(conn, MOSDOp(1, "client.0", 1, "x", "read",
+                                           epoch=7))
+        assert [r.result for r in conn.sent] == [daemon.EAGAIN]
+        osd._applied_epoch = 7  # armed, and nothing to peer: served
+        osd._handle_client_op(conn, MOSDOp(2, "client.0", 1, "x", "read",
+                                           epoch=7))
+        assert conn.sent[-1].result == daemon.ENOENT
+    finally:
+        osd.stop()

@@ -262,7 +262,8 @@ def test_flushing_threads_take_their_own_streams(monkeypatch):
             target=lambda i=i: got.__setitem__(
                 i, (pool.stream(dev), pool.stream(dev))))
         t.start()
-        t.join()
+        t.join(timeout=30)
+        assert not t.is_alive()
     assert all(a is b for a, b in got)
     ids = [a.id for a, _b in got]
     assert len(set(ids[:3])) == 3
