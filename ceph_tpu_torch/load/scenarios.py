@@ -183,6 +183,33 @@ def _slow_ops_trips(c) -> int:
                == "HEALTH_WARN")
 
 
+def _recovery_stuck(c, since: float) -> dict:
+    """What still holds a recovery that missed its deadline: the
+    monitor's active progress items (message, seconds from ``since``,
+    the kill, to the item's start and to its last update), and per OSD
+    its recovery ops in flight and queued, its open storms (PG -> ops
+    not done), its rebuilds out (PG, object, shard, target) and its
+    objects still stale, by PG."""
+    out = {"progress": [[it.get("message") or it.get("id"),
+                         round(it["started"] - since, 2),
+                         round(it["updated"] - since, 2)]
+                        for it in c.mon.progress.active()]}
+    for oid, o in list(c.osds.items()):
+        with o._pending_lock:
+            rebuilds = sorted(f"{pg}:{name}/{shard}->osd.{tgt}"
+                              for pg, name, shard, tgt in o._rebuilds_out)
+            storms = {str(pg): n for pg, n in o._recovery_pg_ops.items()}
+        stale = {str(pg): sorted(objs)
+                 for pg, objs in list(o._stale_objects.items()) if objs}
+        out[f"osd.{oid}"] = {
+            "inflight": o._recovery_inflight,
+            "queued": len(o._recovery_q),
+            "queue_depth": o.scheduler.queue_depth("recovery"),
+            "storms": storms, "rebuilds_out": rebuilds[:20],
+            "stale": stale}
+    return out
+
+
 def run_point(cfg: ScenarioConfig) -> dict:
     """One saturation point: build the cluster, drive the legs, thrash
     mid-traffic, score invariants.  Returns the per-point row."""
@@ -346,6 +373,8 @@ def _run_point_on(c, cfg: ScenarioConfig) -> dict:
                                   if win is not None else rec_ops)
         recovery["window_rate_per_s"] = round(
             recovery["window_ops"] / cfg.qos_window_s, 1)
+        if not recovery["completed"]:
+            recovery["stuck"] = _recovery_stuck(c, thrash_info["kill_t"])
 
     # queue drain: depths must return to zero once load + storm stop
     drained = False
@@ -488,9 +517,12 @@ def run_sweep(points: list[dict] | None = None,
             # convergence pathology of the data plane, not of the QoS
             # setting under test) — a GATE must not false-alarm on it,
             # and two consecutive failures remain a real trip
+            first = {"invariants": row["invariants"],
+                     "recovery": row["recovery"]}
             cfg.seed += 1000
             row = run_point(cfg)
             row["retried"] = True
+            row["first_attempt"] = first
         rows.append(row)
 
     # the gated recovery metric is the WINDOWED rate (served recovery

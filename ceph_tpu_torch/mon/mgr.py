@@ -151,6 +151,20 @@ class ProgressTracker:
                 del self._done[: max(0,
                                      len(self._done) - self.KEEP_DONE)]
 
+    def close_daemon(self, daemon: str) -> None:
+        """``daemon`` went down, or booted anew: its open storms will
+        never report done (the new incarnation opens its own), so they
+        complete now as stale, linger and clear, instead of holding the
+        recovery open for ``stale_after`` seconds."""
+        now = time.time()
+        with self._lock:
+            for key, it in list(self._active.items()):
+                if key[1] == daemon:
+                    it.update(completed=now, stale=True, eta_seconds=None)
+                    self._active.pop(key)
+                    self._done.append(it)
+            del self._done[: max(0, len(self._done) - self.KEEP_DONE)]
+
     def _gc_locked(self, now: float) -> None:
         for key, it in list(self._active.items()):
             if now - it["updated"] > self.stale_after:

@@ -1315,6 +1315,9 @@ class MonitorLite(Dispatcher):
             # cumulative snapshot here is what keeps a kill/revive
             # from double-counting in `perf query report`
             self.perf_queries.reset_daemon(f"osd.{m.osd_id}")
+            # ...and its progress items: storms it opened before this
+            # boot never report done
+            self.progress.close_daemon(f"osd.{m.osd_id}")
             self._clog("cluster", f"osd.{m.osd_id} boot (host "
                                   f"{m.host})", osd=m.osd_id)
             self._commit_map(f"osd.{m.osd_id} boot")
@@ -1412,6 +1415,7 @@ class MonitorLite(Dispatcher):
                 self.osdmap.mark_down(m.target)
                 del self._failure_reports[m.target]
                 self._osd_stats.pop(m.target, None)  # no stale usage
+                self.progress.close_daemon(f"osd.{m.target}")
                 self._subscribers.discard(f"osd.{m.target}")
                 self._clog("cluster",
                            f"osd.{m.target} marked down "
@@ -1540,6 +1544,7 @@ class MonitorLite(Dispatcher):
             with self._lock:
                 self.osdmap.mark_down(target)
                 self._osd_stats.pop(target, None)
+                self.progress.close_daemon(f"osd.{target}")
                 # a down daemon stops being a push target until it
                 # re-boots (a dead host's stale addr must not stall
                 # future commits behind connect timeouts)

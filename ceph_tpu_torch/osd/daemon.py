@@ -795,6 +795,10 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         self._peer_invs: dict[PgId, dict[int, dict]] = {}
         self._peer_lcs: dict[PgId, dict[int, int]] = {}
         self._reconcile_at: dict[PgId, float] = {}
+        # the version counter when the PG's last blocking round closed:
+        # versions past it are this primary's writes of the interval,
+        # which the round's inventories predate (_reconcile_ec)
+        self._round_closed_at: dict[PgId, int] = {}
         # hot shard extents for the partial-write pipeline
         # (ECExtentCache role): serves the delta path's old-byte reads,
         # the rmw row reads and hot-object client reads.  The attached
@@ -5101,6 +5105,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 self._fence_round.pop(pg, None)
                 self._peer_invs.pop(pg, None)
                 self._peer_lcs.pop(pg, None)
+                self._round_closed_at.pop(pg, None)
                 continue
             pgid = PgId(pool_id, seed)
             # fresh round: stale cached inventories/log-positions must
@@ -5111,6 +5116,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             # never completed)
             self._peer_invs.pop(pgid, None)
             self._peer_lcs.pop(pgid, None)
+            self._round_closed_at.pop(pgid, None)
             self._fence_round.pop(pgid, None)
             self._peering_epoch[pgid] = self.osdmap.epoch
             peers = self._peer_query_set(pgid, up)
@@ -5404,9 +5410,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                                "discarding", self.name, pgid, d,
                                my_evs[d], m.les)
                 self._rearm_peering(pgid)
-                self._handle_pg_rollback(
-                    None, MPGRollback(pgid, "", -3, d - 1,
-                                      divergent=True, max_epoch=m.les))
+                self._discard_divergent(pgid, self.osd_id, d - 1, m.les)
                 self._handle_pg_info(None, m)
                 return True
             if not same_v_fork and not phantom_head:
@@ -5439,10 +5443,8 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                                self.name, pgid, m.from_osd, d,
                                m.log_evs[d], my_evs[d])
                 self._rearm_peering(pgid)
-                self.messenger.send_message(
-                    f"osd.{m.from_osd}",
-                    MPGRollback(pgid, "", -3, d - 1, divergent=True,
-                                max_epoch=my_evs[d]))
+                self._discard_divergent(pgid, m.from_osd, d - 1,
+                                        my_evs[d], m.objects)
                 return True
             # I am the divergent one (re-promoted after my interval
             # died): discard my own tail, then re-process this info
@@ -5451,9 +5453,9 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                            "%d < %d): discarding my tail", self.name,
                            pgid, d, my_evs[d], m.log_evs[d])
             self._rearm_peering(pgid)
-            self._handle_pg_rollback(
-                None, MPGRollback(pgid, "", -3, d - 1, divergent=True,
-                                  max_epoch=m.log_evs[d]))
+            self._discard_divergent(pgid, self.osd_id, d - 1,
+                                    m.log_evs[d],
+                                    authority={m.from_osd: m.objects})
             self._handle_pg_info(None, m)
             return True
         # phantom tails (find_best_info's les-first rule): entries one
@@ -5473,10 +5475,8 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                            "(epoch %d < les %d): discarding", self.name,
                            pgid, m.from_osd, d, m.log_evs[d], my_les)
             self._rearm_peering(pgid)
-            self.messenger.send_message(
-                f"osd.{m.from_osd}",
-                MPGRollback(pgid, "", -3, d - 1, divergent=True,
-                            max_epoch=my_les))
+            self._discard_divergent(pgid, m.from_osd, d - 1, my_les,
+                                    m.objects)
             return True
         peer_last = max(m.log_evs) if m.log_evs else 0
         phantom_mine = sorted(v for v, e in my_evs.items()
@@ -5487,12 +5487,69 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                            "< peer les %d): discarding", self.name,
                            pgid, d, my_evs[d], m.les)
             self._rearm_peering(pgid)
-            self._handle_pg_rollback(
-                None, MPGRollback(pgid, "", -3, d - 1, divergent=True,
-                                  max_epoch=m.les))
+            self._discard_divergent(pgid, self.osd_id, d - 1, m.les,
+                                    authority={m.from_osd: m.objects})
             self._handle_pg_info(None, m)
             return True
         return False
+
+    def _discard_divergent(self, pgid: PgId, member: int, to_version: int,
+                           max_epoch: int, member_inv: dict | None = None,
+                           authority: dict | None = None) -> None:
+        """Have ``member`` (this OSD or a peer) discard its log past
+        ``to_version`` (PGLog.h:1344's divergent-entry merge).  An EC
+        shard copy that the discard cannot roll back in place (no
+        pre-image) is kept unless this primary directs its drop, one
+        MPGRollback per object, and it directs one only where the PG
+        can rebuild it (``_rebuildable_copies``).  ``authority`` adds
+        the inventory of the peer whose log won, when it is not this
+        OSD."""
+        if member_inv is None:
+            member_inv = self._inventory(pgid)
+        drops = self._rebuildable_copies(pgid, member, member_inv,
+                                         to_version, authority or {})
+        msgs = [MPGRollback(pgid, "", -3, to_version, divergent=True,
+                            max_epoch=max_epoch)]
+        msgs += [MPGRollback(pgid, name, shard, to_version)
+                 for name, shard in drops]
+        for msg in msgs:
+            if member == self.osd_id:
+                self._handle_pg_rollback(None, msg)
+            else:
+                self.messenger.send_message(f"osd.{member}", msg)
+
+    def _rebuildable_copies(self, pgid: PgId, member: int, member_inv: dict,
+                            to_version: int, authority: dict) -> list:
+        """The EC shard copies ``member`` holds past ``to_version`` that
+        k other positions of the up set hold at the version the PG keeps
+        (the newest of theirs), by the inventories this primary has:
+        the copies a divergent discard may drop for a rebuild.  A copy
+        fewer than k other positions hold is the PG's last word on its
+        object, and stays.  A chosen copy leaves ``member``'s recorded
+        inventory, so a later discard in the round never counts it."""
+        pool = self.osdmap.pools.get(pgid.pool) if self.osdmap else None
+        if pool is None or pool.kind != "ec":
+            return []
+        k = self._pool_codec(pgid.pool).k
+        up = self.osdmap.pg_to_up_osds(pgid.pool, pgid.seed)
+        invs = dict(self._peer_invs.get(pgid, {}))
+        invs[self.osd_id] = self._inventory(pgid)
+        invs.update(authority)
+        invs.pop(member, None)
+        drops = []
+        for (name, shard), v in member_inv.items():
+            if shard < 0 or v <= to_version:
+                continue
+            held = [invs[osd][(name, pos)]
+                    for pos, osd in enumerate(up)
+                    if pos != shard and osd is not None and osd in invs
+                    and (name, pos) in invs[osd]]
+            if held and held.count(max(held)) >= k:
+                drops.append((name, shard))
+        recorded = self._peer_invs.get(pgid, {}).get(member, {})
+        for key in drops:
+            recorded.pop(key, None)
+        return drops
 
     def _handle_pg_info(self, conn, m: MPGInfo) -> None:
         """Primary: compare a peer's state against authority and schedule
@@ -5510,14 +5567,26 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         for name, v in m.tombstones.items():
             self._record_tombstone(m.pgid, name, v)
         dead = self._tombstones.get(m.pgid, {})
-        for (_name, _s), v in peer_inv.items():
+        # the version counter passes every version this round heard of
+        # (inventory, log head, tombstones) before the answer can close
+        # the round and open the PG to writes: a primary whose counter
+        # or store is fresh must not mint a version a member holds (the
+        # newest entry may be a delete, which no inventory shows)
+        heard = [*peer_inv.values(), m.last_complete,
+                 max(m.log_evs, default=0),
+                 max(m.tombstones.values(), default=0)]
+        with self._pending_lock:  # _next_version's read-modify-write
             self._pg_versions[m.pgid] = max(
-                self._pg_versions.get(m.pgid, 0), v)
+                self._pg_versions.get(m.pgid, 0), *heard)
         waiting = self._peering.get(m.pgid)
         done_peering = False
         if waiting is not None:
             waiting.discard(m.from_osd)
             if not waiting:
+                # set before the gate opens: every version past it is
+                # minted after the round's inventories were taken
+                self._round_closed_at[m.pgid] = self._pg_versions.get(
+                    m.pgid, 0)
                 del self._peering[m.pgid]
                 done_peering = True
         fence = self._fence_round.get(m.pgid)
@@ -5941,35 +6010,52 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 else:
                     self.messenger.send_message(f"osd.{osd}", msg)
         # per object: shard -> newest version any inventory reports
+        # (per_obj: a copy an OSD off the up set still holds helps a
+        # roll-forward), and the version each up holder reports at its
+        # own position (up_obj: the k-support a rollback target also
+        # needs, since a rollback drops copies it cannot undo)
         per_obj: dict[str, dict[int, int]] = {}
-        for _osd, inv in invs.items():
+        up_obj: dict[str, dict[int, int]] = {}
+        for osd, inv in invs.items():
             for (name, shard), v in inv.items():
                 if shard < 0:
                     continue
                 cur = per_obj.setdefault(name, {})
                 cur[shard] = max(cur.get(shard, -1), v)
+                if holders.get(shard) == osd:
+                    up_obj.setdefault(name, {})[shard] = v
         dead = self._tombstones.get(pgid, {})
+        closed_at = self._round_closed_at.get(pgid)
         for name, vs in per_obj.items():
             if not vs or dead.get(name, -1) >= max(vs.values()):
                 continue
             vmax = max(vs.values())
             if sum(1 for v in vs.values() if v == vmax) >= codec.k:
                 continue  # newest version decodable: roll-forward path
+            if closed_at is not None and vmax > closed_at:
+                # a write of this interval, in flight or acked since
+                # the inventories were taken: those inventories cannot
+                # show it on its other shards, so they cannot call it
+                # torn (it is judged, if it tears, in the next round)
+                continue
             # newest version k shards hold EXACTLY (shards at a newer
             # version carry different bytes and only help if they roll
-            # back, which is what we're about to ask of them)
+            # back, which is what we're about to ask of them), counted
+            # over every copy and over the up set's positions: a target
+            # only copies off the up set support, or one below a version
+            # they hold at k, is no rollback target
             target = max((v for v in set(vs.values())
                           if sum(1 for x in vs.values() if x == v)
                           >= codec.k), default=None)
-            if target is None or target == vmax:
+            ups = list(up_obj.get(name, {}).values())
+            if target is None or target == vmax \
+                    or ups.count(target) < codec.k:
                 continue  # nothing decodable — scrub/EIO territory
+            ahead = {s: v for s, v in up_obj[name].items() if v > target}
             dout("osd", 1)("%s: torn EC object %s/%s: rolling %s back "
-                           "to v%d", self.name, pgid, name,
-                           [s for s, v in vs.items() if v > target],
+                           "to v%d", self.name, pgid, name, sorted(ahead),
                            target)
-            for shard, v in vs.items():
-                if v <= target or shard not in holders:
-                    continue
+            for shard in ahead:
                 holder = holders[shard]
                 msg = MPGRollback(pgid, name, shard, target)
                 if holder == self.osd_id:
@@ -6015,13 +6101,21 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
                 # shard here could destroy the only copy of its position
                 # without verifying the target version is decodable —
                 # that call belongs to the per-object reconcile, which
-                # checks k-support first.  EXCEPT divergent discard: the
-                # tail being dropped belongs to a dead interval and
-                # never committed — the authority re-pushes its own
-                # content, so dropping is the point (PGLog.h:1344)
-                self._rollback_one(m.pgid, pl, cid, oid, shard,
-                                   group[0].prev_version,
-                                   allow_drop=m.divergent)
+                # checks k-support first.  A divergent discard drops a
+                # replicated copy (the authority re-pushes its own
+                # content, PGLog.h:1344); an EC shard copy it cannot
+                # undo is kept, with its entries cleaned, and dropped
+                # only by a per-object rollback the primary sends where
+                # k other positions can rebuild it (_discard_divergent)
+                undone = self._rollback_one(
+                    m.pgid, pl, cid, oid, shard, group[0].prev_version,
+                    allow_drop=m.divergent and shard < 0)
+                if m.divergent and not undone and shard >= 0:
+                    from .pglog import _key
+                    self.store.queue_transaction(
+                        Transaction().omap_rmkeys(
+                            cid, PGLOG_OID,
+                            [_key(e.version) for e in group]))
         else:
             self._rollback_one(m.pgid, pl, cid, m.oid, m.shard,
                                m.to_version)
@@ -6042,11 +6136,11 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
 
     def _rollback_one(self, pgid: PgId, pl: PGLog, cid, oid: str,
                       shard: int, to_version: int,
-                      allow_drop: bool = True) -> None:
+                      allow_drop: bool = True) -> bool:
         """Undo one object's applies past to_version: pre-images when
         stashed, else (allow_drop) drop the shard copy for rebuild;
         to_version < 0 means the object was CREATED past the point —
-        drop it."""
+        drop it.  Returns whether the copy was rolled back in place."""
         obj = ObjectId(oid, shard=shard)
         ok = False
         if to_version >= 0:
@@ -6055,8 +6149,14 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
             except Exception as e:  # noqa: BLE001
                 dout("osd", 1)("%s: rollback %s/%s failed: %r", self.name,
                                pgid, oid, e)
+            if ok and self.store.exists(cid, obj):
+                # no entry left to undo (a divergent discard cleaned
+                # them, or the log trimmed them) is no rollback while
+                # the copy still stands past the point
+                ok = int(self.store.getattrs(cid, obj).get("v", 0)) \
+                    <= to_version
         if not ok and not allow_drop:
-            return
+            return False
         if not ok:
             span = [e for e in pl.entries_for(oid)
                     if e.shard == shard and e.version > max(to_version, -1)]
@@ -6073,6 +6173,7 @@ class OSDDaemon(ObjOpsMixin, ScrubMixin, SnapMixin, Dispatcher):
         dout("osd", 2)("%s: rolled %s/%s shard %d back to v%d (%s)",
                        self.name, pgid, oid, shard, to_version,
                        "pre-images" if ok else "dropped for rebuild")
+        return ok
 
     def _fetch_and_push(self, pgid, name, shard, src: int, dst: int,
                         version: int) -> None:

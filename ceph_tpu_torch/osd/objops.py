@@ -173,7 +173,13 @@ class ObjOpsMixin:
         data = self.store.read(cid, obj).to_bytes() if exists else b""
         # d covers the STORED bytes (compressed or not) — content is
         # untouched by an omap op, so this recompute is a no-op refresh
-        attrs = {"v": version, "d": _crc32c(data)}
+        # "ev": the epoch this entry is logged under (_log_apply stamps
+        # the same pinned epoch).  A recovery push carries it, and the
+        # receiver logs the pushed version under it: without it the
+        # push re-stamps a committed version with the receiver's epoch,
+        # a false fork whose "newer" side discards the committed copies
+        attrs = {"v": version, "d": _crc32c(data),
+                 "ev": self._entry_epoch()}
         if shard >= 0 and exists:
             # EC shard convention: "len" holds the TOTAL object length
             # (set by the stripe write path) — preserve it
@@ -353,7 +359,8 @@ class ObjOpsMixin:
                            [k for k in effects["rm"] if k in have])
         # digest/len must track the NEW content or deep scrub flags a
         # phantom mismatch and stat() reports the stale length
-        attrs = {"v": version, "d": _crc32c(data)}
+        attrs = {"v": version, "d": _crc32c(data),
+                 "ev": self._entry_epoch()}  # see _apply_omap
         if shard >= 0 and exists and effects.get("data") is None:
             old_len = self.store.getattrs(cid, obj).get("len")
             attrs["len"] = old_len if old_len is not None else len(data)
@@ -689,6 +696,7 @@ class ObjOpsMixin:
             newattrs = {"v": version}
         else:  # fresh object with no data step (e.g. bare create)
             newattrs = {"v": version, "d": _crc32c(b""), "len": 0}
+        newattrs["ev"] = self._entry_epoch()  # see _apply_omap
         if eff.get("clear_wh"):
             newattrs["wh"] = 0
         for name, value in (eff.get("xset") or {}).items():

@@ -449,6 +449,7 @@ class SnapMixin:
         rep_len = (int(clone_attrs["crl"]) if "cz" in clone_attrs
                    else len(data))
         tx.setattrs(cid, head, {"ss": ss_b, "v": version, "wh": 0,
+                                "ev": self._entry_epoch(),
                                 "len": (total_len if shard >= 0
                                         and total_len >= 0
                                         else rep_len),
@@ -534,7 +535,8 @@ class SnapMixin:
             return
         tx.truncate(cid, head, 0)
         tx.setattrs(cid, head, {"wh": 1, "v": version, "len": 0,
-                                "d": _crc32c(b"")})
+                                "d": _crc32c(b""),
+                                "ev": self._entry_epoch()})
         self._log_apply(tx, pgid, LogEntry(version, "write", name, shard,
                                            prev_version=-1))
         self.store.queue_transaction(tx)

@@ -120,16 +120,14 @@ in order, one line each:
              ``--ec-recovery --progress`` (the storm, the
              max_bytes sweep, the wide matrix and the progress story);
              then the cluster modes, each a child with its timeout
-             (``--ec-read``, ``--read-storm``, ``--saturate --smoke``:
-             native clusters, no kernel), and the sweep's
+             (``--ec-read``, ``--read-storm``, ``--saturate --smoke``
+             and ``--saturate --smoke --frontend rgw``, the S3 gateway's
+             point: native clusters, no kernel), and the sweep's
              scrub_throughput row through tools/bench_sweep.  It prints
-             a [bench_root] line of each mode's numbers.  Two options of
-             ``--saturate`` are not run here (ROADMAP, Queue 3):
+             a [bench_root] line of each mode's numbers.  One option of
+             ``--saturate`` is not run here (ROADMAP, Queue 1):
              ``--tenants``, whose weight-split gate reads below its
-             bound in both packages on a host of this size, and
-             ``--frontend rgw``, whose recovery deadline a fault shared
-             with the JAX package misses in some runs (a divergent
-             rollback drops shards of the gateway's objects).
+             bound in both packages on a host of this size.
 19. mesh   — the multi-device fan-out (ceph_tpu_torch/parallel) on one
              card: parallel.mesh.force_devices puts 8 logical devices on
              cuda:0, each with a CUDA stream of its own, as a dp=2 x
@@ -161,9 +159,9 @@ in order, one line each:
              written by 8 threads through
              the Image API in whole objects, 64 MiB again through
              NbdClient and 64 MiB through NvmeInitiator at 1 MiB a
-             request, 512 random 4 KiB overwrites (cut from 2048 for the
-             whole run's time when phase 21 came; about 30 s) a
-             snapshot and 256
+             request, 256 random 4 KiB overwrites (cut from 2048 for the
+             whole run's time when phase 21 came, and from 512 when
+             phase 18's rgw child came; about 15 s), a snapshot and 128
              more, then two OSDs of the image's PGs killed and marked
              down, the whole head read back degraded through the Image
              API while recovery rebuilds, 64 MiB through NBD and the
@@ -2856,7 +2854,8 @@ BENCH_ROOT_KERNEL_MODES = (
 BENCH_ROOT_CLUSTER_MODES = (
     ("ec-read", ["--ec-read"], 180),
     ("read-storm", ["--read-storm"], 180),
-    ("saturate", ["--saturate", "--smoke"], 180))
+    ("saturate", ["--saturate", "--smoke"], 180),
+    ("saturate-rgw", ["--saturate", "--smoke", "--frontend", "rgw"], 180))
 #: the sweep row phase 18 runs through tools/bench_sweep
 BENCH_ROOT_SWEEP_ROW = "scrub_throughput"
 
@@ -3160,10 +3159,12 @@ def check_mesh(counts: dict[str, int], res: dict) -> None:
 #: work; the leg took 83-91 s at 512 MiB on the card with 2048 4 KiB
 #: overwrites (42-46 s of it).  Cut to 512 overwrites when phase 21
 #: came (81.9-90.8 s on the card; 1024 overwrites took 24.9 s of a
-#: 379.6 s run, past the ~360 s aimed at).
+#: 379.6 s run, past the ~360 s aimed at), and to 256 + 128 when phase
+#: 18's ``--frontend rgw`` child came (about 28 s a clean run; 512 +
+#: 256 overwrites took 29.5 s of a 452.9 s run).
 SERVICES = dict(osds=14, pg_num=64, k=8, m=3, image=512 << 20,
                 object_size=OBJECT_SIZE, threads=8, gateway=64 << 20,
-                request=1 << 20, overwrites=512, snap_overwrites=256,
+                request=1 << 20, overwrites=256, snap_overwrites=128,
                 lost=2, wait_s=240.0)
 SERVICES_POOL = "rbdpool"
 #: the OSD write routes phase 20 counts, by the method that takes each

@@ -7,7 +7,8 @@ times in a row, each in its own process, and keep every JSON row.
         -- --ec-recovery --progress
 
 Each run prints one summary line (exit code, seconds, and the row's
-timing-ratio gates and headline numbers); the rows go to
+timing-ratio gates and headline numbers; for the ``--saturate`` modes
+each point's retry flag and recovery); the rows go to
 ``<out>/bench_root_runs.jsonl`` with the card's name and power limit as
 nvidia-smi gives them.  It exits 1 if any run exited nonzero.
 """
@@ -75,9 +76,17 @@ def main(argv=None) -> int:
                                 "rc": proc.returncode, "wall_s": wall,
                                 "card": where, "row": row,
                                 "stderr": proc.stderr[-4000:]}) + "\n")
+            summary = {k: row[k] for k in SUMMARY if k in row}
+            if row.get("points"):
+                # the saturate modes: each point's retry and recovery
+                summary["points"] = [
+                    {"id": pt.get("id"), "retried": pt.get("retried", False),
+                     "recovery_completed": pt["recovery"].get("completed"),
+                     "recovery_items": pt["recovery"].get("items"),
+                     "recovery_wall_s": pt["recovery"].get("wall_s")}
+                    for pt in row["points"]]
             print(f"run {run}: rc {proc.returncode}, {wall:.1f} s, "
-                  + json.dumps({k: row[k] for k in SUMMARY if k in row}),
-                  flush=True)
+                  + json.dumps(summary), flush=True)
             if proc.returncode != 0:
                 print(proc.stderr[-3000:], flush=True)
     return 1 if failed else 0

@@ -687,7 +687,8 @@ def test_bench_root_modes_are_the_issues():
     assert modes["ec-recovery"] == (["--ec-recovery", "--progress"],
                                     ("gf_bitterm", "gf_bitxor", "gf_bitmm"))
     assert [argv for _m, argv, _t in chip_smoke.BENCH_ROOT_CLUSTER_MODES] \
-        == [["--ec-read"], ["--read-storm"], ["--saturate", "--smoke"]]
+        == [["--ec-read"], ["--read-storm"], ["--saturate", "--smoke"],
+            ["--saturate", "--smoke", "--frontend", "rgw"]]
     from ceph_tpu_torch.tools import bench_sweep
     assert chip_smoke.BENCH_ROOT_SWEEP_ROW in {
         c["id"] for c in bench_sweep.bench_root_configs()}
@@ -748,7 +749,8 @@ def test_bench_root_phase_rehearsal_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("mode", ["scrub", "ec-batch", "ec-recovery",
-                                  "ec-read", "read-storm", "saturate"])
+                                  "ec-read", "read-storm", "saturate",
+                                  "saturate-rgw"])
 def test_bench_root_exit_is_taken_as_is(mode):
     """Any nonzero exit of a mode fails phase 18, whatever gate made it:
     the row rides the message."""
@@ -944,15 +946,15 @@ def test_services_check_refuses_each_fault(fault, match):
 def test_services_phase_sizes():
     """Phase 20 (b)'s sizes: an image of 512 MiB in rbd's 4 MiB objects
     on phase 17's cluster and pool, 64 MiB through each gateway at 1 MiB
-    a request, 512 and 256 overwrites of 4 KiB (the first cut from 2048
-    for the whole run's time), two OSDs lost."""
+    a request, 256 and 128 overwrites of 4 KiB (the first cut from 2048,
+    then from 512, for the whole run's time), two OSDs lost."""
     cfg = chip_smoke.SERVICES
     assert cfg["image"] // cfg["object_size"] == 128
     assert cfg["object_size"] == chip_smoke.OBJECT_SIZE == 4 << 20
     for key in ("osds", "pg_num", "k", "m", "lost"):
         assert cfg[key] == chip_smoke.OSD_PHASE[key]
     assert (cfg["gateway"], cfg["request"]) == (64 << 20, 1 << 20)
-    assert (cfg["overwrites"], cfg["snap_overwrites"]) == (512, 256)
+    assert (cfg["overwrites"], cfg["snap_overwrites"]) == (256, 128)
 
 
 # ------------------------------------------------------------ phase 21
